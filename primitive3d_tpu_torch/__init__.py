@@ -1,0 +1,50 @@
+"""primitive3d_tpu_torch — the PyTorch/CUDA port of primitive3d_tpu.
+
+The JAX package (``primitive3d_tpu``) stays as the reference; this package
+runs beside it on an NVIDIA Hopper card, with every TPU kernel on its path
+rewritten by hand in CUDA C++ (``csrc/``). It never imports JAX or the JAX
+package.
+
+This slice covers the serving path of the library's quick start:
+
+    import numpy as np
+    import primitive3d_tpu_torch as p3t
+    from primitive3d_tpu_torch.render.camera import camera_rays
+
+    v, f = p3t.marching_cubes(np.load("bunny.npy"), 0.0, scale=1.0)
+    rc = p3t.create_raycaster(v, f, backend="pallas")
+    cam = camera_rays(512, 512, origin=(0.5, 0.5, -1.5),
+                      look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+    hits = rc.cast(cam.origins, cam.dirs)      # depth, normals, face_id
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"`` (or ``cpu=True`` to ``marching_cubes``); without a card
+they raise.
+"""
+from .core.config import Config, MarchingCubesConfig, RayCastConfig
+from .core.grid import scale_to_bound
+from .core.timer import Timer, TimerError, time_fn
+from .ops.marching_cubes import (
+    MCResult,
+    marching_cubes,
+    marching_cubes_counts,
+    marching_cubes_padded,
+)
+from .raycast import RayHits, available_backends, create_raycaster
+
+__all__ = [
+    "Config",
+    "RayCastConfig",
+    "MarchingCubesConfig",
+    "RayHits",
+    "available_backends",
+    "create_raycaster",
+    "Timer",
+    "TimerError",
+    "time_fn",
+    "scale_to_bound",
+    "MCResult",
+    "marching_cubes",
+    "marching_cubes_counts",
+    "marching_cubes_padded",
+]

@@ -1,0 +1,32 @@
+"""Device selection for the port's entry points.
+
+Every entry point takes ``device`` with default ``"cuda"``. The CPU runs only
+where the caller asks for it; with no card and no request for the CPU the
+call raises instead of carrying on quietly on the host.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``; array input is copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

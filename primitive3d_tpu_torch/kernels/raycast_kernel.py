@@ -1,0 +1,384 @@
+"""Cluster ray caster: work-list prep, CUDA kernels ``csrc/cluster_cast.cu``
+and their plain PyTorch version.
+
+Counterpart of the cluster caster of
+``primitive3d_tpu/kernels/raycast_kernel.py`` (``_ray_intervals``,
+``_interval_cull``, ``_stream_entries``, ``_mxu_prep`` and
+``cast_clusters_mxu``). Rays go in blocks of MBLOCK = 2048, each cut into
+NCH = 8 chunks of RCHUNK = 256 rays. The prep culls every chunk's ray
+interval against every cluster box and writes the same work lists as the
+JAX package:
+
+  * resident tier: per block, the flagged (cluster, chunk) pairs
+    ``(c << 3) | r`` compacted to the front in cluster-major order;
+  * stream tier: per block, one word ``(c << 16) | chunk_mask`` per flagged
+    cluster, stably sorted front to back by its conservative entry bound,
+    with the sorted bounds beside it.
+
+Two kernels consume them, each with its wrapper and launch count:
+``cluster_cast_resident`` and ``cluster_cast_stream``. A wrapper launches
+its kernel for CUDA tensors and runs ``cluster_cast_plain`` for CPU
+tensors; there is no fallback between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+Tensor = torch.Tensor
+
+RCHUNK = 256  # rays per chunk (one CUDA block of the cast kernels)
+MBLOCK = 2048  # rays per block of the work lists
+NCH = MBLOCK // RCHUNK
+WROW = 24  # floats per triangle row of MxuClusterBVH.w
+MAX_CLUSTER_SIZE = 256
+_CULL_ELEMS = 1 << 23  # (block, chunk, cluster) cells per cull pass
+_PLAIN_VISITS = 128  # visits per batch of the plain cast (~0.3 GB of temps)
+_I64_MAX = torch.iinfo(torch.int64).max
+
+_CAST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p]
+RESIDENT = _build.Kernel(
+    "cluster_cast_resident", "cluster_cast.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:604",
+    argtypes=_CAST_ARGS)
+STREAM = _build.Kernel(
+    "cluster_cast_stream", "cluster_cast.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:372",
+    argtypes=_CAST_ARGS[:1] + [ctypes.c_void_p] + _CAST_ARGS[1:])
+
+
+# --- prep: ray intervals, interval cull, work lists --------------------------
+
+def _ray_intervals(o: Tensor, d: Tensor, B: int, nch: int = NCH,
+                   rchunk: int = RCHUNK) -> Tensor:
+    """Per-(block, chunk) ray intervals: origin box + clamped inverse
+    direction bounds, [oxlo, oxhi, ..., ozhi, ivxlo, ..., ivzhi] ->
+    (B, nch, 12). The 1/d clip to +-1e18 keeps 0 * inf NaNs out."""
+    ob = o.reshape(B, nch, rchunk, 3)
+    ivb = torch.clamp(1.0 / d.reshape(B, nch, rchunk, 3), -1e18, 1e18)
+    oint = torch.stack([ob.amin(2), ob.amax(2)], dim=-1).reshape(B, nch, 6)
+    ivint = torch.stack([ivb.amin(2), ivb.amax(2)], dim=-1).reshape(B, nch, 6)
+    return torch.cat([oint, ivint], dim=-1)
+
+
+def _interval_cull(boxes: Tensor, rint: Tensor, max_dist: float
+                   ) -> Tuple[Tensor, Tensor]:
+    """Conservative slab test of chunk ray intervals against cluster boxes.
+
+    Returns ok (B, nch, C) and tl (B, nch, C): a lower bound on any chunk
+    ray's box-entry time, the stream tier's front-to-back key. All 8
+    endpoint products bound each ray's near/far crossing, so a flag is a
+    superset of the exact per-ray flags.
+    """
+    tl = th = None
+    for a in range(3):
+        L0 = boxes[None, None, :, a]
+        L1 = boxes[None, None, :, a + 3]
+        olo = rint[:, :, 2 * a, None]
+        ohi = rint[:, :, 2 * a + 1, None]
+        ivl = rint[:, :, 6 + 2 * a, None]
+        ivh = rint[:, :, 7 + 2 * a, None]
+        d00, d01, d10, d11 = L0 - ohi, L0 - olo, L1 - ohi, L1 - olo
+        prods = (d00 * ivl, d00 * ivh, d01 * ivl, d01 * ivh,
+                 d10 * ivl, d10 * ivh, d11 * ivl, d11 * ivh)
+        nr = fr = prods[0]
+        for q in prods[1:]:
+            nr = torch.minimum(nr, q)
+            fr = torch.maximum(fr, q)
+        tl = nr if tl is None else torch.maximum(tl, nr)
+        th = fr if th is None else torch.minimum(th, fr)
+    ok = (tl <= th) & (th >= 0.0) & (tl < max_dist)
+    return ok, torch.clamp(tl, min=0.0)
+
+
+def _culled(boxes: Tensor, rint: Tensor, max_dist: float):
+    """Yield (block slice, ok & non-degenerate (b, C, nch), tl (b, C, nch))
+    over groups of blocks, bounding the cull's memory at flagship size."""
+    B, nch = rint.shape[:2]
+    C = boxes.shape[0]
+    # zero-extent cluster boxes (point-triangle padding) are never hit
+    nondeg = (boxes[:, 3:] > boxes[:, :3]).any(dim=-1)
+    step = max(1, _CULL_ELEMS // max(1, nch * C))
+    for s in range(0, B, step):
+        ok, tl = _interval_cull(boxes, rint[s:s + step], max_dist)
+        ok = ok & nondeg[None, None, :]
+        yield slice(s, s + step), ok.transpose(1, 2), tl.transpose(1, 2)
+
+
+def _stream_entries(boxes: Tensor, rint: Tensor, max_dist: float
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Stream work list: n (B,), entries (B, C) and bounds (B, C)."""
+    B, nch = rint.shape[:2]
+    C = boxes.shape[0]
+    dev = boxes.device
+    bits = 1 << torch.arange(nch, dtype=torch.int32, device=dev)
+    cid = torch.arange(C, dtype=torch.int32, device=dev) << 16
+    entries = torch.empty((B, C), dtype=torch.int32, device=dev)
+    sbound = torch.empty((B, C), dtype=torch.float32, device=dev)
+    n = torch.empty((B,), dtype=torch.int32, device=dev)
+    for blk, okc, tlc in _culled(boxes, rint, max_dist):
+        cmask = (okc.to(torch.int32) * bits).sum(dim=-1, dtype=torch.int32)
+        bound = torch.where(okc, tlc, 3.0e38).amin(dim=-1)  # (b, C)
+        flagged = cmask > 0
+        # front to back: flagged clusters first, by bound, stably
+        key = torch.where(flagged, bound, float("inf"))
+        perm = torch.sort(key, dim=1, stable=True).indices
+        entries[blk] = torch.gather(cid[None, :] | cmask, 1, perm)
+        sbound[blk] = torch.gather(bound, 1, perm)
+        n[blk] = flagged.sum(dim=1, dtype=torch.int32)
+    return n, entries, sbound
+
+
+def _resident_pairs(boxes: Tensor, rint: Tensor, max_dist: float
+                    ) -> Tuple[Tensor, Tensor]:
+    """Resident work list: n (B,) and pairs (B, C*nch), cluster-major."""
+    B, nch = rint.shape[:2]
+    C = boxes.shape[0]
+    dev = boxes.device
+    pairs = torch.empty((B, C * nch), dtype=torch.int32, device=dev)
+    n = torch.empty((B,), dtype=torch.int32, device=dev)
+    for blk, okc, _ in _culled(boxes, rint, max_dist):
+        okt = okc.reshape(okc.shape[0], C * nch)
+        # pair id c * nch + r == (c << 3) | r; flagged ones to the front
+        perm = torch.sort((~okt).to(torch.int8), dim=1, stable=True).indices
+        pairs[blk] = perm.to(torch.int32)
+        n[blk] = okt.sum(dim=1, dtype=torch.int32)
+    return n, pairs
+
+
+def _mxu_prep(bvh, o: Tensor, d: Tensor, max_dist: float, stream: bool):
+    """Work lists and ray rows for the cast kernels.
+
+    ``o``/``d`` are padded to a multiple of MBLOCK. Returns
+    ``(n, work, bounds, rays)``: per-block list lengths (B,) int32, the work
+    list (B, L) int32, the stream bounds (B, L) float32 (None for the
+    resident tier) and the ray rows (9, Rp) = [d; o x d; o].
+    """
+    B = o.shape[0] // MBLOCK
+    m = torch.linalg.cross(o, d, dim=-1)
+    rays = torch.cat([d, m, o], dim=1).T.contiguous()
+    rint = _ray_intervals(o, d, B)
+    if stream:
+        n, entries, sbound = _stream_entries(bvh.boxes, rint, max_dist)
+        return n, entries, sbound, rays
+    n, pairs = _resident_pairs(bvh.boxes, rint, max_dist)
+    return n, pairs, None, rays
+
+
+# --- the cast: plain version ------------------------------------------------
+
+def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
+    """Packed min keys (V, RCHUNK) of V visits.
+
+    W (V, S, 24) cluster rows, R (9, V, RCHUNK) ray rows. The same
+    arithmetic, in the same order, as csrc/cluster_cast.cu.
+    """
+    S = W.shape[1]
+    im = S - 1
+    dx, dy, dz, mx, my, mz, ox, oy, oz = (R[k][:, None, :] for k in range(9))
+    u = [W[..., k, None] for k in range(22)]  # (V, S, 1) each
+    s0 = u[0] * dx + u[1] * dy + u[2] * dz + u[3] * mx + u[4] * my + u[5] * mz
+    s1 = (u[6] * dx + u[7] * dy + u[8] * dz + u[9] * mx + u[10] * my
+          + u[11] * mz)
+    s2 = (u[12] * dx + u[13] * dy + u[14] * dz + u[15] * mx + u[16] * my
+          + u[17] * mz)
+    num = u[18] * ox + u[19] * oy + u[20] * oz + u[21]
+    b0, b1, b2, b3 = (x.view(torch.int32) for x in (s0, s1, s2, num))
+    if edge_wildcard:
+        nz = [(x & 0x7FFFFFFF) != 0 for x in (b0, b1, b2, b3)]
+        bs = (b0, b1, b2, b3)
+        bad = torch.zeros_like(nz[0])
+        for i in range(4):
+            for j in range(i + 1, 4):
+                bad |= ((bs[i] ^ bs[j]) < 0) & nz[i] & nz[j]
+        ok = ~bad
+    else:
+        ok = ((b0 ^ b1) | (b0 ^ b2) | (b0 ^ b3)) >= 0
+    t = num / ((s0 + s1) + s2)
+    tm = torch.abs(torch.where(ok, t, 3.0e38))
+    slot = torch.arange(S, dtype=torch.int32, device=W.device)[:, None]
+    return ((tm.view(torch.int32) & ~im) | slot).amin(dim=1)
+
+
+def cluster_cast_plain(n: Tensor, work: Tensor, bounds: Optional[Tensor],
+                       w: Tensor, fin: Tensor, rays: Tensor, max_dist: float,
+                       edge_wildcard: bool = False, with_fin: bool = True):
+    """Plain version of both cast kernels: a vectorised pass over all visits.
+
+    ``bounds`` is None for the resident tier (pairs) and the stream bounds
+    for the stream tier (entries). Per visit the packed min over the S
+    triangles comes first; then, per ray, the smallest quantised t below
+    max_dist wins, the first visit in list order on equal t (an int64 key
+    ``t_bits << 32 | entry << 8 | slot`` and an amin). The stream kernel's
+    early exit is exact, so this version visits everything.
+    """
+    stream = bounds is not None
+    dev = rays.device
+    B, L = work.shape
+    Rp = rays.shape[1]
+    S = w.shape[1]
+    im = S - 1
+    valid = torch.arange(L, device=dev)[None, :] < n.to(torch.int64)[:, None]
+    vb, ve = valid.nonzero(as_tuple=True)
+    words = work[vb, ve]
+    if stream:
+        bits = (words[:, None] >> torch.arange(NCH, device=dev)) & 1
+        vi, vr = bits.nonzero(as_tuple=True)
+        vb, ve, vc = vb[vi], ve[vi], words[vi] >> 16
+    else:
+        vr, vc = words & (NCH - 1), words >> 3
+    lane = torch.arange(RCHUNK, device=dev)
+    best = torch.full((Rp,), _I64_MAX, dtype=torch.int64, device=dev)
+    for s in range(0, vb.numel(), _PLAIN_VISITS):
+        sl = slice(s, s + _PLAIN_VISITS)
+        ray_ids = (vb[sl] * MBLOCK + vr[sl] * RCHUNK)[:, None] + lane
+        kmin = _visit_keys(w[vc[sl].to(torch.int64)], rays[:, ray_ids],
+                           edge_wildcard)
+        tb_bits = kmin & ~im
+        key = ((tb_bits.to(torch.int64) << 32) | (ve[sl][:, None] << 8)
+               | (kmin & im).to(torch.int64))
+        key = torch.where(tb_bits.view(torch.float32) < max_dist, key,
+                          _I64_MAX)
+        best.scatter_reduce_(0, ray_ids.reshape(-1), key.reshape(-1), "amin")
+    found = best != _I64_MAX
+    tb = (best >> 32).to(torch.int32).view(torch.float32)
+    e = (best >> 8) & 0xFFFFFF
+    blocks = torch.arange(Rp, device=dev) // MBLOCK
+    word = work[blocks, torch.where(found, e, 0)]
+    c = (word >> 16) if stream else (word >> 3)
+    depth = torch.where(found, tb, torch.full_like(tb, max_dist))
+    idx = torch.where(found, c * S + (best & im).to(torch.int32), -1)
+    if not with_fin:
+        return depth, idx, None
+    finr = fin.reshape(-1, 8)[idx.clamp(min=0).to(torch.int64)]
+    return depth, idx, torch.where(found[:, None], finr,
+                                   torch.zeros_like(finr))
+
+
+# --- the cast: kernel wrappers -----------------------------------------------
+
+def _check_cast_inputs(n, work, bounds, w, fin, rays):
+    if w.dim() != 3 or w.shape[2] != WROW or w.dtype != torch.float32:
+        raise ValueError(f"w must be (C, S, {WROW}) float32, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    C, S = w.shape[:2]
+    if S > MAX_CLUSTER_SIZE or S & (S - 1):
+        raise ValueError(f"cluster size must be a power of two <= "
+                         f"{MAX_CLUSTER_SIZE}, got {S}")
+    if tuple(fin.shape) != (C, S, 8) or fin.dtype != torch.float32:
+        raise ValueError(f"fin must be ({C}, {S}, 8) float32")
+    if rays.dim() != 2 or rays.shape[0] != 9 or rays.shape[1] % MBLOCK:
+        raise ValueError(f"rays must be (9, Rp) with Rp % {MBLOCK} == 0")
+    B = rays.shape[1] // MBLOCK
+    if work.dim() != 2 or work.shape[0] != B or work.dtype != torch.int32:
+        raise ValueError(f"work list must be ({B}, L) int32")
+    if tuple(n.shape) != (B,) or n.dtype != torch.int32:
+        raise ValueError(f"n must be ({B},) int32")
+    if bounds is not None and (bounds.shape != work.shape
+                               or bounds.dtype != torch.float32):
+        raise ValueError("bounds must match the entries, float32")
+    for t in (n, work, bounds, w, fin, rays):
+        if t is None:
+            continue
+        if t.device != rays.device:
+            raise ValueError("all cast inputs must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("cast inputs must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _cast(kernel, n, work, bounds, w, fin, rays, max_dist, edge_wildcard,
+          with_fin, visits):
+    _check_cast_inputs(n, work, bounds, w, fin, rays)
+    if rays.device.type == "cpu":
+        return cluster_cast_plain(n, work, bounds, w, fin, rays, max_dist,
+                                  edge_wildcard, with_fin)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    Rp = rays.shape[1]
+    B = Rp // MBLOCK
+    dev = rays.device
+    depth = torch.empty((Rp,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Rp,), dtype=torch.int32, device=dev)
+    finr = (torch.empty((Rp, 8), dtype=torch.float32, device=dev)
+            if with_fin else None)
+    if visits is not None and (tuple(visits.shape) != (B * NCH,)
+                               or visits.dtype != torch.int32
+                               or visits.device != dev):
+        raise ValueError(f"visits must be ({B * NCH},) int32 on {dev}")
+    head = [work.data_ptr()]
+    if bounds is not None:
+        head.append(bounds.data_ptr())
+    with torch.cuda.device(dev):
+        kernel.launch(
+            *head, n.data_ptr(), work.shape[1], w.data_ptr(),
+            fin.data_ptr(), rays.data_ptr(), Rp, B, w.shape[1],
+            float(max_dist), int(bool(edge_wildcard)), depth.data_ptr(),
+            idx.data_ptr(), finr.data_ptr() if with_fin else None,
+            visits.data_ptr() if visits is not None else None)
+    return depth, idx, finr
+
+
+def cluster_cast_resident(n: Tensor, pairs: Tensor, w: Tensor, fin: Tensor,
+                          rays: Tensor, max_dist: float,
+                          edge_wildcard: bool = False, with_fin: bool = True,
+                          visits: Optional[Tensor] = None):
+    """Resident-tier cast: (depth (Rp,), sorted idx (Rp,), fin rows (Rp, 8)).
+
+    ``visits`` (B * NCH,) int32, if given, receives each chunk's visit count
+    (kernel only)."""
+    return _cast(RESIDENT, n, pairs, None, w, fin, rays, max_dist,
+                 edge_wildcard, with_fin, visits)
+
+
+def cluster_cast_stream(n: Tensor, entries: Tensor, bounds: Tensor,
+                        w: Tensor, fin: Tensor, rays: Tensor, max_dist: float,
+                        edge_wildcard: bool = False, with_fin: bool = True,
+                        visits: Optional[Tensor] = None):
+    """Stream-tier cast, same outputs as :func:`cluster_cast_resident`."""
+    return _cast(STREAM, n, entries, bounds, w, fin, rays, max_dist,
+                 edge_wildcard, with_fin, visits)
+
+
+def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
+                      max_dist: float = 10.0, stream: bool = False,
+                      with_fin: bool = False, edge_wildcard: bool = False):
+    """Closest hit through the cluster kernels: (t, sorted-triangle index)
+    and, with ``with_fin``, each ray's winning finish row (R, 8).
+
+    ``bvh`` is a :class:`~primitive3d_tpu_torch.bvh.clusters.MxuClusterBVH`
+    on the rays' device. Depth is quantised to 2^-17 relative (the packed
+    slot bits); the caller refines winners from their plane. Rays are padded
+    to a multiple of MBLOCK with o = 0, d = 1.
+    """
+    if stream and bvh.num_clusters > 32767:
+        # the stream word packs (cluster_id << 16) | chunk mask in an int32
+        raise ValueError(
+            f"stream tier supports at most 32767 clusters, got "
+            f"{bvh.num_clusters}; raise cluster_size")
+    R = origins.shape[0]
+    pad = (-R) % MBLOCK
+    dev = origins.device
+    o = torch.cat([origins, torch.zeros((pad, 3), dtype=torch.float32,
+                                        device=dev)])
+    d = torch.cat([dirs, torch.ones((pad, 3), dtype=torch.float32,
+                                    device=dev)])
+    n, work, bounds, rays = _mxu_prep(bvh, o, d, float(max_dist), stream)
+    if stream:
+        depth, idx, finr = cluster_cast_stream(
+            n, work, bounds, bvh.w, bvh.fin, rays, max_dist, edge_wildcard,
+            with_fin)
+    else:
+        depth, idx, finr = cluster_cast_resident(
+            n, work, bvh.w, bvh.fin, rays, max_dist, edge_wildcard, with_fin)
+    if with_fin:
+        return depth[:R], idx[:R], finr[:R]
+    return depth[:R], idx[:R]

@@ -1,0 +1,320 @@
+"""Marching cubes on dense density grids (PyTorch).
+
+Counterpart of ``primitive3d_tpu/ops/marching_cubes.py`` (the indexed-mesh
+forward path: the counts pass, ``marching_cubes_padded`` and the eager
+``marching_cubes``). The output is the JAX package's, in the same order:
+
+  * vertex ids number the crossing edges x-axis first (C order of the
+    (X-1, Y, Z) edge grid), then y, then z;
+  * faces follow ascending active cube (C order), then the within-cube
+    triangle k of the table;
+  * the padded tails are zero.
+
+The TPU-shaped scans and decoders of the JAX package (``_excl_cumsum_flat``,
+``_ntris_vec``, ``_twolevel_src``, ``_expand_src``) become ``torch.cumsum``,
+a table gather, a scatter of each selected element to its scan slot, and
+``torch.searchsorted``. None of them syncs with the host: the eager
+``marching_cubes`` reads the counts back once, as the JAX package does.
+Indices are int64 (a 256^3 grid has ~50M edges); faces come out int32.
+
+The mask pass is ``kernels.mc_masks.fused_masks``: the CUDA kernel on the
+card, its plain version on the CPU.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core import debug
+from ..core.device import DeviceLike, as_tensor, resolve_device
+from ..core.grid import ScaleLike, resolve_bounds
+from ..kernels.mc_masks import fused_masks
+from . import mc_tables as T
+
+Tensor = torch.Tensor
+MAX_TRIS_PER_CUBE = T.MAX_TRIS_PER_CUBE
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> Tuple[Tensor, Tensor]:
+    """(NUM_TRIS (256,) int32, flat PACKED_TRI (256*5,) int32) on device."""
+    return (torch.as_tensor(T.NUM_TRIS, dtype=torch.int32, device=device),
+            torch.as_tensor(T.PACKED_TRI.reshape(-1), dtype=torch.int32,
+                            device=device))
+
+
+class MCResult(NamedTuple):
+    """Padded marching-cubes output (fixed shapes).
+
+    ``vertices[:num_vertices]`` and ``faces[:num_faces]`` are valid; the tail
+    is zero padding. ``num_*`` may exceed the capacity if the buffers
+    overflowed — check ``overflowed`` before trusting a padded result.
+    """
+
+    vertices: Tensor  # (vert_capacity, 3) float32
+    faces: Tensor  # (face_capacity, 3) int32
+    num_vertices: Tensor  # () int64 (true count, may exceed capacity)
+    num_faces: Tensor  # () int64
+    unit_overflow: Tensor  # () bool: the active-cube budget ran out
+
+    @property
+    def overflowed(self) -> Tensor:
+        return ((self.num_vertices > self.vertices.shape[0])
+                | (self.num_faces > self.faces.shape[0])
+                | self.unit_overflow)
+
+
+def _excl_cumsum(x: Tensor) -> Tensor:
+    """Exclusive prefix sum of a flat 0/1 or small-count tensor, int32."""
+    incl = torch.cumsum(x, 0, dtype=torch.int32)
+    return incl - x.to(torch.int32)
+
+
+def _compact_src(mask: Tensor, excl: Tensor, capacity: int) -> Tensor:
+    """Indices of the first ``capacity`` set elements of ``mask``, in order.
+
+    Each set element writes its own index to its exclusive-scan slot; the
+    elements past the capacity and the unset ones all go to one dump slot
+    that is cut off. Slots past the set count stay zero.
+    """
+    slot = torch.where(mask & (excl < capacity), excl.to(torch.int64),
+                       capacity)
+    src = torch.zeros(capacity + 1, dtype=torch.int64, device=mask.device)
+    src.scatter_(0, slot, torch.arange(mask.numel(), dtype=torch.int64,
+                                       device=mask.device))
+    return src[:capacity]
+
+
+def _decode_edge(src: Tensor, shape):
+    """Global edge ids (x-block, then y, then z; C order each) -> axis
+    flags, lattice coords (i, j, k) and density-flat endpoint indices."""
+    X, Y, Z = shape
+    Ex = (X - 1) * Y * Z
+    Ey = X * (Y - 1) * Z
+    is_x = src < Ex
+    is_y = (src >= Ex) & (src < Ex + Ey)
+    is_z = ~(is_x | is_y)
+    lx, ly, lz = src, src - Ex, src - Ex - Ey
+
+    def ijk(l, d1, d2):
+        return l // d1, (l % d1) // d2, l % d2
+
+    xi, xj, xk = ijk(lx, Y * Z, Z)
+    yi, yj, yk = ijk(ly, (Y - 1) * Z, Z)
+    zi, zj, zk = ijk(lz, Y * (Z - 1), Z - 1)
+
+    def pick(a, b, c):
+        return torch.where(is_x, a, torch.where(is_y, b, c))
+
+    i, j, k = pick(xi, yi, zi), pick(xj, yj, zj), pick(xk, yk, zk)
+    p0 = i * (Y * Z) + j * Z + k
+    p1 = p0 + torch.where(is_x, Y * Z, torch.where(is_y, Z, 1))
+    return is_x, is_y, is_z, i, j, k, p0, p1
+
+
+def _selected_positions(density: Tensor, thresh: float, src: Tensor,
+                        valid: Tensor, scale: Tensor, lower: Tensor
+                        ) -> Tensor:
+    """World positions (3, capacity) of the selected crossing edges.
+
+    The forward formula of ``_selected_positions_fwd`` in the JAX package:
+    decode the edge id, gather its two density samples, interpolate with
+    ``dt = clip((thresh - d0) / (d1 - d0), 0, 1)`` (a zero denominator
+    divides by 1 instead).
+    """
+    is_x, is_y, is_z, i, j, k, p0, p1 = _decode_edge(src, density.shape)
+    dflat = density.reshape(-1)
+    d0 = dflat[p0]
+    d1 = dflat[p1]
+    den = d1 - d0
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    dt = torch.clamp((thresh - d0) / safe, 0.0, 1.0)
+    zero = torch.zeros_like(dt)
+    coords = [i.to(torch.float32) + torch.where(is_x, dt, zero),
+              j.to(torch.float32) + torch.where(is_y, dt, zero),
+              k.to(torch.float32) + torch.where(is_z, dt, zero)]
+    out = torch.stack([coords[a] * scale[a] + lower[a] for a in range(3)])
+    return torch.where(valid[None, :], out, torch.zeros_like(out))
+
+
+def _counts(density: Tensor, thresh: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """(num_vertices, num_faces, active cubes) as 0-d int64 tensors."""
+    cx, cy, cz, cm = fused_masks(density, thresh)
+    num_tris, _ = _tables(density.device)
+    nv = (cx.sum(dtype=torch.int64) + cy.sum(dtype=torch.int64)
+          + cz.sum(dtype=torch.int64))
+    ntris = num_tris[cm.reshape(-1).to(torch.int64)]
+    return nv, ntris.sum(dtype=torch.int64), (ntris > 0).sum(dtype=torch.int64)
+
+
+def _mc_padded_impl(density: Tensor, thresh: float, lower: Tensor,
+                    upper: Tensor, vert_capacity: int, face_capacity: int,
+                    active_capacity: int = 0) -> MCResult:
+    X, Y, Z = density.shape
+    dev = density.device
+    num_tris, packed_flat = _tables(dev)
+    cx, cy, cz, cmask = fused_masks(density, thresh)
+
+    # --- vertices: select the crossing edges, then positions -------------
+    # ONE exclusive scan over the concatenated crossing mask is the global
+    # vertex numbering of all three axes (x-edges first, then y, z)
+    mask_flat = torch.cat([cx.reshape(-1), cy.reshape(-1), cz.reshape(-1)])
+    ids_all = _excl_cumsum(mask_flat)
+    num_vertices = mask_flat.sum(dtype=torch.int64)
+    src = _compact_src(mask_flat.bool(), ids_all, vert_capacity)
+    valid_v = torch.arange(vert_capacity, device=dev) < num_vertices
+    scale = (upper - lower) / torch.tensor([X, Y, Z], dtype=torch.float32,
+                                           device=dev)
+    verts = _selected_positions(density, thresh, src, valid_v, scale,
+                                lower).T.contiguous()
+
+    # --- faces: compact the active cubes, then slot -> (cube, k) ---------
+    mask = cmask.reshape(-1).to(torch.int64)
+    ntris = num_tris[mask]
+    num_faces = ntris.sum(dtype=torch.int64)
+    amask = ntris > 0
+    Ac = active_capacity or face_capacity
+    asrc = _compact_src(amask, _excl_cumsum(amask), Ac)
+    n_active = amask.sum(dtype=torch.int64)
+    a_ovf = n_active > Ac
+    valid_a = torch.arange(Ac, device=dev) < n_active
+    ntris_a = torch.where(valid_a, ntris[asrc].to(torch.int64), 0)
+    mask_a = torch.where(valid_a, mask[asrc], 0)
+
+    # face slot q belongs to the active cube whose inclusive triangle count
+    # first exceeds q; slots past the total decode to in-bounds garbage that
+    # the validity mask zeroes
+    incl = torch.cumsum(ntris_a, 0)
+    q = torch.arange(face_capacity, dtype=torch.int64, device=dev)
+    apos = torch.searchsorted(incl, q, right=True).clamp_(max=Ac - 1)
+    k = q - (incl - ntris_a)[apos]
+    cube = asrc[apos]
+    valid_f = q < num_faces
+    CY, CZ = Y - 1, Z - 1
+    ci = cube // (CY * CZ)
+    cj = (cube // CZ) % CY
+    ck = cube % CZ
+    pk = packed_flat[mask_a[apos] * MAX_TRIS_PER_CUBE
+                     + k.clamp(0, MAX_TRIS_PER_CUBE - 1)].to(torch.int64)
+    base_x = (ci * Y + cj) * Z + ck  # x-edge block: (X-1, Y, Z)
+    base_y = (ci * (Y - 1) + cj) * Z + ck  # y-edge block: (X, Y-1, Z)
+    base_z = (ci * Y + cj) * (Z - 1) + ck  # z-edge block: (X, Y, Z-1)
+    Ex = (X - 1) * Y * Z
+    Ey = X * (Y - 1) * Z
+    fcols = []
+    for j in range(3):
+        info = (pk >> (5 * j)) & 31
+        ax = info >> 3
+        ox = (info >> 2) & 1
+        oy = (info >> 1) & 1
+        oz = info & 1
+        fx = base_x + oy * Z + oz
+        fy = base_y + ox * ((Y - 1) * Z) + oz
+        fz = base_z + ox * (Y * (Z - 1)) + oy * (Z - 1)
+        gidx = torch.where(ax == 0, fx,
+                           torch.where(ax == 1, Ex + fy, Ex + Ey + fz))
+        fcols.append(torch.where(valid_f, ids_all[gidx], 0))
+    faces = torch.stack(fcols, dim=-1).to(torch.int32)
+    return MCResult(verts, faces, num_vertices, num_faces, a_ovf)
+
+
+def _density_tensor(density, device: torch.device) -> Tensor:
+    d = as_tensor(density, torch.float32, device).contiguous()
+    if d.dim() != 3 or min(d.shape) < 2:
+        raise ValueError(
+            f"density must be a 3-D grid with every dim >= 2, got "
+            f"{tuple(d.shape)}")
+    return d
+
+
+def marching_cubes_counts(density, thresh: float,
+                          device: DeviceLike = "cuda") -> Tuple[Tensor, Tensor]:
+    """(num_vertices, num_faces) as 0-d tensors, without a host sync."""
+    dev = resolve_device(device)
+    nv, nf, _ = _counts(_density_tensor(density, dev), float(thresh))
+    return nv, nf
+
+
+def marching_cubes_padded(
+    density,
+    thresh: float,
+    *,
+    vert_capacity: Optional[int] = None,
+    face_capacity: Optional[int] = None,
+    lower=None,
+    upper=None,
+    active_capacity: int = 0,
+    config=None,
+    device: DeviceLike = "cuda",
+) -> MCResult:
+    """Marching cubes with fixed-capacity outputs and no host sync.
+
+    Capacities may come from a :class:`core.config.MarchingCubesConfig` via
+    ``config``; explicit arguments override it.
+    """
+    if config is not None:
+        if vert_capacity is None:
+            vert_capacity = config.vert_capacity
+        if face_capacity is None:
+            face_capacity = config.face_capacity
+        active_capacity = active_capacity or config.active_capacity
+    if vert_capacity is None or face_capacity is None:
+        raise ValueError(
+            "vert_capacity/face_capacity required (directly or via config)")
+    dev = resolve_device(device)
+    d = _density_tensor(density, dev)
+    X, Y, Z = d.shape
+    lo = as_tensor([0.0, 0.0, 0.0] if lower is None else lower,
+                   torch.float32, dev)
+    up = as_tensor([X, Y, Z] if upper is None else upper, torch.float32, dev)
+    res = _mc_padded_impl(d, float(thresh), lo, up, int(vert_capacity),
+                          int(face_capacity), int(active_capacity))
+    debug.check(
+        ~res.overflowed,
+        "marching_cubes_padded: capacity overflow "
+        "(counted {v} verts / {f} faces)",
+        v=res.num_vertices, f=res.num_faces,
+    )
+    return res
+
+
+def _round_capacity(n: int) -> int:
+    """Round up to the next power of two (at least 16)."""
+    n = max(int(n), 16)
+    return 1 << (n - 1).bit_length()
+
+
+def marching_cubes(
+    density,
+    thresh: float,
+    scale: Optional[ScaleLike] = None,
+    verbose: bool = False,
+    cpu: bool = False,
+    device: DeviceLike = "cuda",
+) -> Tuple[Tensor, Tensor]:
+    """Eager marching cubes: exact-size (vertices, faces).
+
+    ``scale`` is normalised to a bbox by ``core.grid.resolve_bounds``;
+    returns float32 world-space vertices and int32 faces. One device->host
+    sync reads the counts, then the padded extraction runs and is trimmed.
+    ``cpu=True`` runs on the host CPU (the same as ``device="cpu"``).
+    """
+    dev = resolve_device("cpu" if cpu else device)
+    d = _density_tensor(density, dev)
+    lower, upper = resolve_bounds(tuple(d.shape), scale)
+    nvt, nft, nat = _counts(d, float(thresh))
+    nv, nf, na = torch.stack([nvt, nft, nat]).tolist()
+    res = marching_cubes_padded(
+        d, thresh,
+        vert_capacity=_round_capacity(nv),
+        face_capacity=_round_capacity(nf),
+        lower=lower, upper=upper,
+        active_capacity=_round_capacity(na),
+        device=dev,
+    )
+    if verbose:
+        print(f"#vertices={nv}")
+        print(f"#triangles={nf}")
+    return res.vertices[:nv], res.faces[:nf]

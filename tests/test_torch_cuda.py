@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test needs an NVIDIA GPU and skips without one. On a
+machine with a card run them with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The kernels repeat the plain versions' arithmetic in the same order with
+no FMA contraction, so masks and casts are compared exactly.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import primitive3d_tpu_torch as p3t
+from primitive3d_tpu_torch.core.config import RayCastConfig
+from primitive3d_tpu_torch.kernels import _build
+from primitive3d_tpu_torch.kernels import mc_masks as mk
+from primitive3d_tpu_torch.kernels import raycast_kernel as rk
+from primitive3d_tpu_torch.render.camera import camera_rays
+
+BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "examples", "data", "bunny.npy")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (20, 23, 29), (66, 66, 66)])
+def test_masks_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    grid = torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    before = mk.KERNEL.launches
+    got = mk.fused_masks(grid, 0.1)
+    assert mk.KERNEL.launches == before + 1
+    for g, w in zip(got, mk.fused_masks_plain(grid, 0.1)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("edge_wildcard", [False, True])
+@pytest.mark.parametrize("stream", [False, True])
+def test_cast_kernels_match_plain(cuda, stream, edge_wildcard):
+    v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0)
+    rc = p3t.create_raycaster(v, f, config=RayCastConfig(
+        mxu_max_tris=0 if stream else 32_000, edge_wildcard=edge_wildcard))
+    cam = camera_rays(128, 96, origin=(0.43, 0.57, -1.5),
+                      look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+    o = torch.from_numpy(cam.origins).to(cuda)
+    d = torch.from_numpy(cam.dirs).to(cuda)
+    pad = (-o.shape[0]) % rk.MBLOCK
+    o = torch.cat([o, torch.zeros((pad, 3), device=cuda)])
+    d = torch.cat([d, torch.ones((pad, 3), device=cuda)])
+    n, work, bounds, rays = rk._mxu_prep(rc.cbvh, o, d, 10.0, stream)
+    kern, fn = ((rk.STREAM, rk.cluster_cast_stream) if stream
+                else (rk.RESIDENT, rk.cluster_cast_resident))
+    args = (n, work) + ((bounds,) if stream else ()) + (
+        rc.cbvh.w, rc.cbvh.fin, rays, 10.0, edge_wildcard)
+    before = kern.launches
+    visits = torch.zeros(n.shape[0] * rk.NCH, dtype=torch.int32,
+                         device=cuda)
+    got = fn(*args, visits=visits)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = rk.cluster_cast_plain(n, work, bounds, rc.cbvh.w, rc.cbvh.fin,
+                                 rays, 10.0, edge_wildcard)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(visits.sum()) > 0
+    if not stream:  # the resident kernel visits every pair once
+        assert int(visits.sum()) == int(n.sum())
+
+
+@pytest.mark.parametrize("tier", [32_000, 0])
+def test_whole_slice_card_equals_cpu(cuda, tier):
+    ax = np.linspace(-1.0, 1.0, 32).astype(np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    g = (np.float32(0.6) - np.sqrt((x - 0.13) ** 2 + (y + 0.07) ** 2
+                                   + (z - 0.05) ** 2)).astype(np.float32)
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    outs = []
+    for device in ("cuda", "cpu"):
+        v, f = p3t.marching_cubes(g, 0.0, scale=(-1.0, 1.0), device=device)
+        rc = p3t.create_raycaster(v, f, device=device,
+                                  config=RayCastConfig(mxu_max_tris=tier))
+        outs.append([t.cpu() for t in (v, f, *rc.cast(cam.origins,
+                                                      cam.dirs))])
+    (vc, fc, dc, nc, ic), (vh, fh, dh, nh, ih) = outs
+    assert torch.equal(fc, fh) and torch.allclose(vc, vh, rtol=0, atol=1e-6)
+    assert torch.equal(ic, ih)
+    assert torch.allclose(dc, dh, rtol=1e-6, atol=1e-6)
+    assert torch.allclose(nc, nh, rtol=0, atol=1e-6)
+
+
+def test_build_all_sources(cuda):
+    logs = _build.build()
+    assert set(_build.sources()) == {"cluster_cast.cu", "mc_masks.cu"}
+    assert all(isinstance(text, str) for text in logs.values())

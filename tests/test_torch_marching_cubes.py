@@ -1,0 +1,166 @@
+"""Parity of the PyTorch port's marching cubes with the JAX package (CPU).
+
+The same grids, made with numpy, go through ``primitive3d_tpu`` and
+``primitive3d_tpu_torch``. The JAX mask kernel runs as its own tests run it
+on the CPU (``fused_masks(..., interpret=True)``); the port runs its plain
+versions on CPU tensors. Integers (masks, counts, faces, padded tails) must
+match exactly; vertices within 1e-5 of the bounding-box size, since XLA may
+fuse ``coords * scale + lower`` into an FMA where PyTorch rounds twice.
+"""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import primitive3d_tpu as p3d
+import primitive3d_tpu_torch as p3t
+from primitive3d_tpu.kernels.mc_masks import fused_masks as jax_fused_masks
+from primitive3d_tpu.ops import mc_tables as jax_tables
+from primitive3d_tpu_torch.kernels import mc_masks as port_masks
+from primitive3d_tpu_torch.ops import mc_tables as port_tables
+
+BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "examples", "data", "bunny.npy")
+
+
+def sphere(n=24, c=(0.13, -0.07, 0.05), r=0.6):
+    """Off-centre sphere SDF on [-1, 1]^3 (positive inside)."""
+    ax = np.linspace(-1.0, 1.0, n).astype(np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (np.float32(r) - np.sqrt((x - c[0]) ** 2 + (y - c[1]) ** 2
+                                    + (z - c[2]) ** 2)).astype(np.float32)
+
+
+GRIDS = {"bunny": lambda: np.load(BUNNY), "sphere24": sphere}
+SCALES = {"none": None, "float": 1.5, "bbox": ((-1.0, -2.0, 0.5),
+                                               (1.0, 2.0, 3.5))}
+
+
+def _bbox_size(shape, scale):
+    from primitive3d_tpu_torch.core.grid import resolve_bounds
+    lo, up = resolve_bounds(shape, scale)
+    return float(np.max(up - lo))
+
+
+@pytest.mark.parametrize("name", ["TRI_TABLE", "NUM_TRIS", "PACKED_TRI",
+                                  "EDGE_AXIS", "EDGE_OFFSET", "EDGE_CORNERS",
+                                  "CORNER_OFFSETS"])
+def test_tables_equal_jax(name):
+    a, b = getattr(jax_tables, name), getattr(port_tables, name)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+    assert port_tables.MAX_TRIS_PER_CUBE == jax_tables.MAX_TRIS_PER_CUBE
+
+
+@pytest.mark.parametrize("shape,thresh", [((20, 23, 29), 0.1),
+                                          ((7, 5, 9), -0.3),
+                                          ((2, 2, 2), 0.0)])
+def test_masks_match_jax_kernel(shape, thresh):
+    rng = np.random.default_rng(sum(shape))
+    grid = rng.standard_normal(shape).astype(np.float32)
+    want = jax_fused_masks(jnp.asarray(grid), jnp.float32(thresh),
+                           interpret=True)
+    before = port_masks.KERNEL.launches
+    got = port_masks.fused_masks(torch.from_numpy(grid), thresh)
+    assert port_masks.KERNEL.launches == before  # CPU: plain version only
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert g.dtype == {np.int8: torch.int8, np.uint8: torch.uint8}[
+            w.dtype.type]
+        np.testing.assert_array_equal(w, g.numpy())
+
+
+@pytest.mark.parametrize("scale", list(SCALES))
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_marching_cubes_matches_jax(grid, scale):
+    g, sc = GRIDS[grid](), SCALES[scale]
+    vj, fj = p3d.marching_cubes(g, 0.0, scale=sc)
+    vj, fj = np.asarray(vj), np.asarray(fj)
+    vt, ft = p3t.marching_cubes(g, 0.0, scale=sc, device="cpu")
+    vc, fc = p3t.marching_cubes(g, 0.0, scale=sc, cpu=True)
+    assert ft.dtype == torch.int32 and vt.dtype == torch.float32
+    np.testing.assert_array_equal(fj, ft.numpy())
+    np.testing.assert_allclose(vt.numpy(), vj, rtol=0,
+                               atol=1e-5 * _bbox_size(g.shape, sc))
+    assert torch.equal(ft, fc) and torch.equal(vt, vc)
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_counts_match_jax(grid):
+    g = GRIDS[grid]()
+    nv, nf = p3d.marching_cubes_counts(g, 0.0)
+    tv, tf = p3t.marching_cubes_counts(g, 0.0, device="cpu")
+    assert (int(nv), int(nf)) == (int(tv), int(tf))
+
+
+@pytest.mark.parametrize("active", [0, 1024])
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_padded_matches_jax(grid, active):
+    g = GRIDS[grid]()
+    kw = dict(vert_capacity=16384, face_capacity=32768,
+              lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0),
+              active_capacity=active)
+    want = p3d.marching_cubes_padded(g, 0.0, **kw)
+    got = p3t.marching_cubes_padded(g, 0.0, device="cpu", **kw)
+    assert int(want.num_vertices) == int(got.num_vertices)
+    assert int(want.num_faces) == int(got.num_faces)
+    assert bool(want.overflowed) == bool(got.overflowed)
+    if bool(got.overflowed):  # the active budget ran out: flags only
+        assert active and bool(got.unit_overflow)
+        return
+    np.testing.assert_array_equal(np.asarray(want.faces), got.faces.numpy())
+    np.testing.assert_allclose(got.vertices.numpy(),
+                               np.asarray(want.vertices), rtol=0, atol=2e-5)
+    nv, nf = int(got.num_vertices), int(got.num_faces)
+    assert not got.vertices[nv:].any() and not got.faces[nf:].any()
+
+
+@pytest.mark.parametrize("caps", [(64, 4096), (4096, 64), (64, 64)])
+def test_overflow_matches_jax(caps):
+    g = sphere()
+    kw = dict(vert_capacity=caps[0], face_capacity=caps[1])
+    want = p3d.marching_cubes_padded(g, 0.0, **kw)
+    got = p3t.marching_cubes_padded(g, 0.0, device="cpu", **kw)
+    assert bool(want.overflowed) and bool(got.overflowed)
+    assert int(want.num_vertices) == int(got.num_vertices)
+    assert int(want.num_faces) == int(got.num_faces)
+    assert bool(want.unit_overflow) == bool(got.unit_overflow)
+
+
+def test_padded_config_and_checks():
+    from primitive3d_tpu_torch.core import debug
+    cfg = p3t.MarchingCubesConfig(vert_capacity=4096, face_capacity=8192)
+    g = sphere()
+    res = p3t.marching_cubes_padded(g, 0.0, config=cfg, device="cpu")
+    assert res.vertices.shape == (4096, 3) and res.faces.shape == (8192, 3)
+    with pytest.raises(ValueError):
+        p3t.marching_cubes_padded(g, 0.0, device="cpu")
+    with debug.checks(), pytest.raises(debug.CheckError, match="overflow"):
+        p3t.marching_cubes_padded(g, 0.0, vert_capacity=8, face_capacity=8,
+                                  device="cpu")
+
+
+def test_empty_grid():
+    v, f = p3t.marching_cubes(np.ones((5, 6, 7), np.float32), 0.0,
+                              device="cpu")
+    assert v.shape == (0, 3) and f.shape == (0, 3)
+
+
+def test_entry_points_default_to_the_card():
+    g = sphere(8)
+    calls = [
+        lambda: p3t.marching_cubes(g, 0.0),
+        lambda: p3t.marching_cubes_padded(g, 0.0, vert_capacity=64,
+                                          face_capacity=64),
+        lambda: p3t.marching_cubes_counts(g, 0.0),
+        lambda: p3t.create_raycaster(np.zeros((3, 3), np.float32),
+                                     np.array([[0, 1, 2]])),
+    ]
+    if torch.cuda.is_available():
+        assert p3t.marching_cubes(g, 0.0)[0].device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
