@@ -5,7 +5,7 @@ runs beside it on an NVIDIA Hopper card, with every TPU kernel on its path
 rewritten by hand in CUDA C++ (``csrc/``). It never imports JAX or the JAX
 package.
 
-This slice covers the serving path of the library's quick start:
+Its first slice covers the serving path of the library's quick start:
 
     import numpy as np
     import primitive3d_tpu_torch as p3t
@@ -17,6 +17,17 @@ This slice covers the serving path of the library's quick start:
                       look_at=(0.5, 0.5, 0.5), fov_y=35.0)
     hits = rc.cast(cam.origins, cam.dirs)      # depth, normals, face_id
 
+and its second slice adds the training path, one differentiable
+SDF-fitting step (soup marching cubes -> cluster cast -> L2 depth loss ->
+gradient to the grid):
+
+    density = torch.from_numpy(grid).cuda().requires_grad_()
+    loss = p3t.sdf_fitting_loss(density, cam.origins, cam.dirs, target,
+                                vert_capacity=262_144, face_capacity=425_984,
+                                lower=(-1, -1, -1), upper=(1, 1, 1),
+                                backend="pallas")
+    loss.backward()
+
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` (or ``cpu=True`` to ``marching_cubes``); without a card
 they raise.
@@ -26,10 +37,13 @@ from .core.grid import scale_to_bound
 from .core.timer import Timer, TimerError, time_fn
 from .ops.marching_cubes import (
     MCResult,
+    MCSoupResult,
     marching_cubes,
     marching_cubes_counts,
     marching_cubes_padded,
+    marching_cubes_soup,
 )
+from .pipeline import RenderOut, render_depth, sdf_fitting_loss
 from .raycast import RayHits, available_backends, create_raycaster
 
 __all__ = [
@@ -47,4 +61,9 @@ __all__ = [
     "marching_cubes",
     "marching_cubes_counts",
     "marching_cubes_padded",
+    "MCSoupResult",
+    "marching_cubes_soup",
+    "RenderOut",
+    "render_depth",
+    "sdf_fitting_loss",
 ]

@@ -23,7 +23,9 @@ class RayCastConfig:
     max_dist: float = 10.0
     cluster_size: Optional[int] = None  # None = 128, or 256 past 500k tris
     # mesh-size tiers of the cluster caster (see raycast.ClusterRayCaster)
-    mxu_max_tris: int = 32_000  # resident tier up to here, stream above
+    # resident tier up to here, stream above; None = the caster's
+    # ClusterRayCaster.MXU_MAX_TRIS (32,000)
+    mxu_max_tris: Optional[int] = None
     mxu_stream_max_tris: Optional[int] = None  # None = 32767 * cluster_size
     # exactly-zero Plücker side products (a ray through a shared edge)
     # agree with any sign instead of counting as +0/-0 signs

@@ -26,7 +26,8 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``x`` as a ``dtype`` tensor on ``device``; array input is copied."""
+    """``x`` as a ``dtype`` tensor on ``device``; array input is copied.
+    A tensor moves with ``.to``, which autograd follows back to its leaf."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -19,6 +19,12 @@ Two kernels consume them, each with its wrapper and launch count:
 ``cluster_cast_resident`` and ``cluster_cast_stream``. A wrapper launches
 its kernel for CUDA tensors and runs ``cluster_cast_plain`` for CPU
 tensors; there is no fallback between the two.
+
+The differentiable cast ``cast_clusters_diff`` (counterpart of the JAX
+function of that name and its custom VJPs) finds hits with those kernels
+and recomputes depth from the winners' planes. Its stream-tier backward is
+a third kernel, ``plane_scatter`` (``csrc/plane_scatter.cu``, plain version
+``plane_scatter_plain``), which walks the forward's work list.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..geometry.triangle import dot3
 from . import _build
 
 Tensor = torch.Tensor
@@ -348,17 +355,11 @@ def cluster_cast_stream(n: Tensor, entries: Tensor, bounds: Tensor,
                  edge_wildcard, with_fin, visits)
 
 
-def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
-                      max_dist: float = 10.0, stream: bool = False,
-                      with_fin: bool = False, edge_wildcard: bool = False):
-    """Closest hit through the cluster kernels: (t, sorted-triangle index)
-    and, with ``with_fin``, each ray's winning finish row (R, 8).
-
-    ``bvh`` is a :class:`~primitive3d_tpu_torch.bvh.clusters.MxuClusterBVH`
-    on the rays' device. Depth is quantised to 2^-17 relative (the packed
-    slot bits); the caller refines winners from their plane. Rays are padded
-    to a multiple of MBLOCK with o = 0, d = 1.
-    """
+def _cast_with_list(bvh, origins: Tensor, dirs: Tensor, max_dist: float,
+                    stream: bool, with_fin: bool, edge_wildcard: bool):
+    """Prep and cast: (depth, idx, fin rows) of the R rays and the work list
+    ``(n, work)`` of the rays padded to a multiple of MBLOCK with o = 0,
+    d = 1 (the backward scatter walks the same list)."""
     if stream and bvh.num_clusters > 32767:
         # the stream word packs (cluster_id << 16) | chunk mask in an int32
         raise ValueError(
@@ -379,6 +380,213 @@ def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
     else:
         depth, idx, finr = cluster_cast_resident(
             n, work, bvh.w, bvh.fin, rays, max_dist, edge_wildcard, with_fin)
-    if with_fin:
-        return depth[:R], idx[:R], finr[:R]
-    return depth[:R], idx[:R]
+    return (depth[:R], idx[:R], finr[:R] if with_fin else None), (n, work)
+
+
+def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
+                      max_dist: float = 10.0, stream: bool = False,
+                      with_fin: bool = False, edge_wildcard: bool = False):
+    """Closest hit through the cluster kernels: (t, sorted-triangle index)
+    and, with ``with_fin``, each ray's winning finish row (R, 8).
+
+    ``bvh`` is a :class:`~primitive3d_tpu_torch.bvh.clusters.MxuClusterBVH`
+    on the rays' device. Depth is quantised to 2^-17 relative (the packed
+    slot bits); the caller refines winners from their plane. Rays are padded
+    to a multiple of MBLOCK with o = 0, d = 1.
+    """
+    (depth, idx, finr), _ = _cast_with_list(bvh, origins, dirs, max_dist,
+                                            stream, with_fin, edge_wildcard)
+    return (depth, idx, finr) if with_fin else (depth, idx)
+
+
+# --- backward: plane cotangents -> cluster-space rows ------------------------
+
+PLANE_SCATTER = _build.Kernel(
+    "plane_scatter", "plane_scatter.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:1279",
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def _cluster_masks(n: Tensor, entries: Tensor, C: int) -> Tensor:
+    """The stream work list per cluster: (C, B) int32, the chunk mask of
+    cluster c's word in block b's list (0 where c is not listed)."""
+    B, L = entries.shape
+    dev = entries.device
+    live = torch.arange(L, device=dev)[None, :] < n[:, None]
+    slot = torch.where(
+        live, (entries >> 16).to(torch.int64) * B
+        + torch.arange(B, device=dev)[:, None], C * B)  # C * B: dump slot
+    cm = torch.zeros(C * B + 1, dtype=torch.int32, device=dev)
+    cm.scatter_(0, slot.reshape(-1), (entries & 0xFFFF).reshape(-1))
+    return cm[:C * B].view(C, B)
+
+
+def plane_scatter_plain(g: Tensor, widx: Tensor, n: Tensor, entries: Tensor,
+                        C: int, S: int) -> Tensor:
+    """Plain version of the plane scatter kernel: (C*S, 4) float32.
+
+    Row ``c*S + j`` sums the cotangents ``g`` (Rp, 4) of the rays whose
+    winner ``widx`` (Rp,) is ``c*S + j``, over the rays whose chunk is
+    flagged for cluster c in their block's stream list ``(n, entries)``;
+    other rays add nothing. Summed in float64 with ``index_add_``.
+    """
+    dev = g.device
+    Rp = widx.shape[0]
+    cm = _cluster_masks(n, entries, C)
+    ray = torch.arange(Rp, device=dev)
+    c = torch.div(widx, S, rounding_mode="floor").clamp(min=0).to(torch.int64)
+    word = cm[c, ray // MBLOCK]
+    ok = (widx >= 0) & (((word >> ((ray % MBLOCK) // RCHUNK)) & 1) == 1)
+    out = torch.zeros((C * S, 4), dtype=torch.float64, device=dev)
+    out.index_add_(0, widx.clamp(min=0).to(torch.int64),
+                   torch.where(ok[:, None], g.to(torch.float64), 0.0))
+    return out.to(torch.float32)
+
+
+def plane_scatter(g: Tensor, widx: Tensor, n: Tensor, entries: Tensor,
+                  C: int, S: int) -> Tensor:
+    """Scatter per-ray plane cotangents into cluster-space rows (C*S, 4).
+
+    ``g`` (Rp, 4) float32 and ``widx`` (Rp,) int32 (the sorted winner, -1
+    for none) over rays padded to a multiple of MBLOCK; ``(n, entries)`` the
+    forward's stream work list. Launches ``csrc/plane_scatter.cu`` for CUDA
+    tensors (same bits on every launch) and runs
+    :func:`plane_scatter_plain` for CPU tensors.
+    """
+    Rp = widx.shape[0]
+    if Rp % MBLOCK or tuple(widx.shape) != (Rp,) or widx.dtype != torch.int32:
+        raise ValueError(f"widx must be (Rp,) int32 with Rp % {MBLOCK} == 0")
+    if tuple(g.shape) != (Rp, 4) or g.dtype != torch.float32:
+        raise ValueError(f"g must be ({Rp}, 4) float32")
+    B = Rp // MBLOCK
+    if tuple(n.shape) != (B,) or n.dtype != torch.int32:
+        raise ValueError(f"n must be ({B},) int32")
+    if (entries.dim() != 2 or entries.shape[0] != B
+            or entries.dtype != torch.int32):
+        raise ValueError(f"entries must be ({B}, L) int32")
+    if S > MAX_CLUSTER_SIZE or S & (S - 1):
+        raise ValueError(f"cluster size must be a power of two <= "
+                         f"{MAX_CLUSTER_SIZE}, got {S}")
+    if any(t.device != g.device for t in (widx, n, entries)):
+        raise ValueError("all plane scatter inputs must be on one device")
+    if g.device.type == "cpu":
+        return plane_scatter_plain(g, widx, n, entries, C, S)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    if not (g.is_contiguous() and widx.is_contiguous()) or g.data_ptr() % 16:
+        raise ValueError("g and widx must be contiguous, g 16-byte aligned")
+    cm = _cluster_masks(n, entries, C)
+    out = torch.empty((C * S, 4), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        PLANE_SCATTER.launch(cm.data_ptr(), B, widx.data_ptr(), g.data_ptr(),
+                             C, S, out.data_ptr())
+    return out
+
+
+class _PlanesSelect(torch.autograd.Function):
+    """The winners' plane rows ``planes[max(prim, 0)]``, taken from the
+    cast kernel's fin rows; the backward scatter-adds the cotangents of the
+    hit rays (prim >= 0) into ``planes`` (resident tier)."""
+
+    @staticmethod
+    def forward(ctx, planes, prim, fin4):
+        ctx.save_for_backward(prim)
+        ctx.T = planes.shape[0]
+        return fin4.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (prim,) = ctx.saved_tensors
+        dplanes = torch.zeros((ctx.T, 4), dtype=g.dtype, device=g.device)
+        dplanes.index_add_(0, prim.clamp(min=0).to(torch.int64),
+                           torch.where((prim >= 0)[:, None], g, 0.0))
+        return dplanes, None, None
+
+
+class _PlanesSelectWS(torch.autograd.Function):
+    """As :class:`_PlanesSelect`, with the backward on the plane scatter
+    kernel over the forward's stream work list. Needs clusters in identity
+    order: cluster space is face space, padded to C*S rows."""
+
+    @staticmethod
+    def forward(ctx, planes, prim, fin4, sidx, n, entries, S):
+        ctx.save_for_backward(prim, sidx, n, entries)
+        ctx.T, ctx.S = planes.shape[0], S
+        return fin4.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        prim, sidx, n, entries = ctx.saved_tensors
+        R = sidx.shape[0]
+        Rp = n.shape[0] * MBLOCK
+        gp = torch.zeros((Rp, 4), dtype=torch.float32, device=g.device)
+        gp[:R] = torch.where((prim >= 0)[:, None], g, 0.0)
+        wp = torch.full((Rp,), -1, dtype=torch.int32, device=g.device)
+        wp[:R] = sidx
+        C = -(-ctx.T // ctx.S)
+        dsorted = plane_scatter(gp, wp, n, entries, C, ctx.S)
+        return dsorted[:ctx.T], None, None, None, None, None, None
+
+
+def check_stream_cap(T: int, scap: Optional[int] = None) -> None:
+    """Raise if T triangles exceed the cluster kernels' stream tier, above
+    which the JAX package switches to its scalar-broadcast kernel."""
+    from ..bvh.clusters import CLUSTER_SIZE
+    scap = 32767 * CLUSTER_SIZE if scap is None else scap
+    if T > scap:
+        raise NotImplementedError(
+            f"{T} triangles exceed the stream tier's {scap}; the "
+            f"scalar-broadcast cluster kernel is not ported yet (ROADMAP.md "
+            f"Queue 2 items 2-3)")
+
+
+def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
+                       max_dist: float = 10.0,
+                       mxu_max_tris: Optional[int] = None,
+                       mxu_stream_max_tris: Optional[int] = None
+                       ) -> Tuple[Tensor, Tensor]:
+    """Differentiable closest hit: (depth, original-triangle index).
+
+    The cluster kernels find each ray's hit triangle with no gradient (the
+    assignment is discrete); depth is then recomputed from that triangle's
+    plane, ``t = (a.n - o.n) / d.n``, so gradients reach ``tris`` and the
+    rays with the hit held fixed. Without ``bvh`` the clusters are built
+    from ``tris.detach()`` in identity order; meshes of more than
+    ``ClusterRayCaster.MXU_MAX_TRIS`` triangles take the stream tier, whose
+    backward runs the plane scatter kernel over the forward's work list.
+    """
+    from ..bvh.clusters import build_mxu_clusters
+    from ..raycast import ClusterRayCaster
+
+    cap = (ClusterRayCaster.MXU_MAX_TRIS if mxu_max_tris is None
+           else mxu_max_tris)
+    T = tris.shape[0]
+    identity = bvh is None
+    if identity:
+        check_stream_cap(T, mxu_stream_max_tris)
+        bvh = build_mxu_clusters(tris.detach(), order="identity")
+    stream = T > cap
+    # each face's plane [n, a.n], differentiable. The 3-term sums here and
+    # below are written out (dot3), so the card and the CPU round alike: a
+    # grazing hit's t = num / den magnifies a one-ulp difference of den
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    nrm = torch.linalg.cross(b - a, c - a, dim=-1)
+    planes = torch.cat([nrm, dot3(a, nrm)[:, None]], dim=-1)
+    with torch.no_grad():
+        (_, sidx, finr), (n, work) = _cast_with_list(
+            bvh, origins.detach(), dirs.detach(), max_dist, stream,
+            with_fin=True, edge_wildcard=False)
+    fid_f = finr[:, 5]
+    hit = (sidx >= 0) & (fid_f >= 0.0)
+    prim = torch.where(hit, fid_f.to(torch.int32), -1)
+    if identity and stream:
+        pr = _PlanesSelectWS.apply(planes, prim, finr[:, :4], sidx, n, work,
+                                   bvh.cluster_size)
+    else:
+        pr = _PlanesSelect.apply(planes, prim, finr[:, :4])
+    den = dot3(dirs, pr[:, :3])
+    num = pr[:, 3] - dot3(origins, pr[:, :3])
+    t = num / torch.where(den == 0, torch.full_like(den, 1e-30), den)
+    depth = torch.where(hit, t, torch.full_like(t, float(max_dist)))
+    return depth, prim

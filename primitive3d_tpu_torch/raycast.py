@@ -26,7 +26,7 @@ from .core import debug
 from .core.config import RayCastConfig
 from .core.device import DeviceLike, as_tensor, resolve_device
 from .geometry.triangle import dot3
-from .kernels.raycast_kernel import cast_clusters_mxu
+from .kernels.raycast_kernel import cast_clusters_mxu, check_stream_cap
 
 Tensor = torch.Tensor
 
@@ -115,12 +115,15 @@ class ClusterRayCaster(RayCaster):
     """Cluster caster on the card's hand-written kernels.
 
     The JAX package's tier rules, unchanged: meshes of at most
-    ``mxu_max_tris`` (32,000) triangles use the resident tier, larger ones
-    the stream tier; the cluster size is 128 up to 500k triangles and 256
-    above. Past 32767 clusters the JAX package switches to its
+    ``mxu_max_tris`` (default ``MXU_MAX_TRIS``) triangles use the resident
+    tier, larger ones the stream tier; the cluster size is 128 up to 500k
+    triangles and 256 above. Past 32767 clusters the JAX package switches to its
     scalar-broadcast kernel, which is not ported yet.
     """
 
+    # the one default of the resident-tier cap: RayCastConfig and
+    # cast_clusters_diff read it when given no cap
+    MXU_MAX_TRIS = 32_000
     AUTO_FAT_CLUSTER_TRIS = 500_000
 
     def __init__(self, vertices, faces, max_dist=DEFAULT_MAX_DIST,
@@ -129,20 +132,15 @@ class ClusterRayCaster(RayCaster):
                  device: DeviceLike = "cuda"):
         super().__init__(vertices, faces, max_dist, device)
         self.edge_wildcard = bool(edge_wildcard)
-        cap = RayCastConfig.mxu_max_tris if mxu_max_tris is None \
-            else mxu_max_tris
+        cap = self.MXU_MAX_TRIS if mxu_max_tris is None else mxu_max_tris
         if cluster_size is None:
             cs = (CLUSTER_SIZE if self.num_triangles
                   <= self.AUTO_FAT_CLUSTER_TRIS else 2 * CLUSTER_SIZE)
         else:
             cs = cluster_size
-        scap = (32767 * cs if mxu_stream_max_tris is None
-                else mxu_stream_max_tris)
-        if self.num_triangles > scap:
-            raise NotImplementedError(
-                f"{self.num_triangles} triangles exceed the stream tier's "
-                f"{scap}; the scalar-broadcast cluster kernel is not ported "
-                f"yet (ROADMAP.md Queue 2 items 2-3)")
+        check_stream_cap(self.num_triangles,
+                         32767 * cs if mxu_stream_max_tris is None
+                         else mxu_stream_max_tris)
         self.stream = self.num_triangles > cap
         self.cbvh = build_mxu_clusters(self.triangles, cluster_size=cs)
 

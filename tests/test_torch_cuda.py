@@ -5,8 +5,11 @@ machine with a card run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The kernels repeat the plain versions' arithmetic in the same order with
-no FMA contraction, so masks and casts are compared exactly.
+The mask and cast kernels repeat the plain versions' arithmetic in the same
+order with no FMA contraction, so masks and casts are compared exactly. The
+plane scatter kernel sums each row in float32 in ray order where its plain
+version sums in float64: it is compared to a relative error of 1e-5, and
+with itself bit for bit.
 """
 import os
 
@@ -15,10 +18,12 @@ import pytest
 import torch
 
 import primitive3d_tpu_torch as p3t
+from primitive3d_tpu_torch.bvh.clusters import build_mxu_clusters
 from primitive3d_tpu_torch.core.config import RayCastConfig
 from primitive3d_tpu_torch.kernels import _build
 from primitive3d_tpu_torch.kernels import mc_masks as mk
 from primitive3d_tpu_torch.kernels import raycast_kernel as rk
+from primitive3d_tpu_torch.raycast import ClusterRayCaster
 from primitive3d_tpu_torch.render.camera import camera_rays
 
 BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -100,7 +105,87 @@ def test_whole_slice_card_equals_cpu(cuda, tier):
     assert torch.allclose(nc, nh, rtol=0, atol=1e-6)
 
 
+def _sphere(n=32):
+    ax = np.linspace(-1.0, 1.0, n).astype(np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (np.float32(0.6) - np.sqrt((x - 0.13) ** 2 + (y + 0.07) ** 2
+                                      + (z - 0.05) ** 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("size", ["small", "mid"])
+def test_plane_scatter_kernel_matches_plain(cuda, size):
+    """On a real stream list: the sphere soup under 64x64 rays (small) and
+    the bunny soup under 512x512 rays (mid)."""
+    if size == "small":
+        grid, cap, box = _sphere(), 8192, dict(lower=(-1, -1, -1),
+                                               upper=(1, 1, 1))
+        cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    else:
+        grid, cap, box = np.load(BUNNY), 32768, dict(lower=(0, 0, 0),
+                                                     upper=(1, 1, 1))
+        cam = camera_rays(512, 512, origin=(0.5, 0.5, -1.5),
+                          look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+    soup = p3t.marching_cubes_soup(grid, 0.0, face_capacity=cap, **box).soup
+    bvh = build_mxu_clusters(soup, order="identity")
+    o = torch.from_numpy(cam.origins).to(cuda)
+    d = torch.from_numpy(cam.dirs).to(cuda)
+    (_, sidx, _), (n, entries) = rk._cast_with_list(bvh, o, d, 10.0, True,
+                                                    True, False)
+    Rp = n.shape[0] * rk.MBLOCK
+    widx = torch.full((Rp,), -1, dtype=torch.int32, device=cuda)
+    widx[:sidx.shape[0]] = sidx
+    assert int((widx >= 0).sum()) > 100
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn((Rp, 4), generator=gen, device=cuda)
+    C, S = bvh.num_clusters, bvh.cluster_size
+    before = rk.PLANE_SCATTER.launches
+    got = rk.plane_scatter(g, widx, n, entries, C, S)
+    again = rk.plane_scatter(g, widx, n, entries, C, S)
+    torch.cuda.synchronize()
+    assert rk.PLANE_SCATTER.launches == before + 2
+    assert torch.equal(got, again)
+    want = rk.plane_scatter_plain(g, widx, n, entries, C, S)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5 and float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["pallas-32000", "pallas-0", "mxu"])
+def test_training_step_card_equals_cpu(cuda, case, monkeypatch):
+    """One SDF-fitting step on the 32^3 off-centre sphere: face ids and
+    the cluster cast's depth equal (its 3-term sums are written out, so both
+    devices round alike), loss to rtol 1e-6, density gradient to rtol 1e-5
+    / atol 1e-6 x its largest entry (sums in another order on the card)."""
+    backend, _, cap = case.partition("-")
+    if cap:
+        monkeypatch.setattr(ClusterRayCaster, "MXU_MAX_TRIS", int(cap))
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    kw = dict(vert_capacity=4096, face_capacity=8192, lower=(-1, -1, -1),
+              upper=(1, 1, 1), max_dist=10.0, backend=backend)
+    target = np.full(cam.origins.shape[0], 1.7, np.float32)
+    outs = []
+    for device in ("cuda", "cpu"):
+        dens = torch.from_numpy(_sphere()).to(device).requires_grad_()
+        loss = p3t.sdf_fitting_loss(dens, cam.origins, cam.dirs, target,
+                                    device=device, **kw)
+        loss.backward()
+        soup = p3t.marching_cubes_soup(dens.detach(), 0.0,
+                                       face_capacity=8192,
+                                       lower=kw["lower"], upper=kw["upper"],
+                                       device=device)
+        depth, fid = rk.cast_clusters_diff(
+            soup.soup, torch.from_numpy(cam.origins).to(device),
+            torch.from_numpy(cam.dirs).to(device))
+        outs.append((loss.item(), dens.grad.cpu(), fid.cpu(),
+                     depth.detach().cpu()))
+    (lc, gc, fc, dc), (lh, gh, fh, dh) = outs
+    assert torch.equal(fc, fh) and torch.equal(dc, dh)
+    assert lc == pytest.approx(lh, rel=1e-6)
+    torch.testing.assert_close(gc, gh, rtol=1e-5,
+                               atol=1e-6 * float(gh.abs().max()))
+
+
 def test_build_all_sources(cuda):
     logs = _build.build()
-    assert set(_build.sources()) == {"cluster_cast.cu", "mc_masks.cu"}
+    assert set(_build.sources()) == {"cluster_cast.cu", "mc_masks.cu",
+                                     "plane_scatter.cu"}
     assert all(isinstance(text, str) for text in logs.values())
