@@ -18,20 +18,32 @@ kernel launch counts set to 0 just before it and read just after:
   * the training path: one differentiable SDF-fitting step
     (``sdf_fitting_loss(..., backend="pallas")`` then ``backward()``) at the
     configuration of FLAGSHIP_r5.json and tools/flagship_probe.py: the
-    256^3 sphere, a 425,984-face soup, 1088x1920 rays, target depth 1.7.
+    256^3 sphere, a 425,984-face soup, 1088x1920 rays, target depth 1.7;
+  * the large-mesh path, the scalar-broadcast cluster tier: the card's
+    bunny mesh subdivided 5 times by edge midpoints (tools/stream_sweep.py)
+    into 27,197,440 triangles, which ``create_raycaster(...,
+    backend="pallas")`` casts in the scalar-broadcast tier by its size
+    alone (106,240 clusters of 256, past the stream tier's 32,767), cast
+    under the bunny's 512x512 camera; then ``cast_clusters(...,
+    ordered=False)`` and ``cast_clusters_diff`` (forward and backward) on
+    the same mesh and rays.
 
 It checks the outputs (exact counts, card against CPU, the flagship step's
 depth against the analytic sphere and its loss and gradient norm against
-FLAGSHIP_r5.json), runs three Adam steps of the flagship fitting recipe,
-holds each kernel against its plain PyTorch version on the card at the
-shapes its path gives it, times the kernels and the paths' stages with CUDA
+FLAGSHIP_r5.json, the large mesh's frame against the bunny's and, on the
+rays where they disagree, against a brute force of the large mesh), runs three
+Adam steps of the flagship fitting recipe, holds each kernel against its
+plain PyTorch version on the card at the shapes its path gives it, casts
+the level-0 bunny with the "mxu", "bruteforce" and "bvh" backends against
+the cluster caster, times the kernels and the paths' stages with CUDA
 events, and prints:
 
   * a ``stages`` JSON line: the paths' stage times;
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
-    error against its plain version, its time, the plain version's time,
-    its lower bound on this card and the time of one PyTorch call that
-    computes the same function, where there is one;
+    error against its plain version, its time, the plain version's time
+    (for the scalar-broadcast kernels on ``plain_blocks`` of the frame's
+    ray blocks), its lower bound on this card and the time of one PyTorch
+    call that computes the same function, where there is one;
   * the card's name and power limit (nvidia-smi);
   * last, ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +76,26 @@ FLAGSHIP_R5 = dict(loss=48.77151107788086, grad_norm=0.002150929532945156)
 BOX = dict(lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0))
 SERVING_KERNELS = ("mc_masks", "cluster_cast_resident", "cluster_cast_stream")
 TRAINING_KERNELS = ("mc_masks", "cluster_cast_stream", "plane_scatter")
+LARGE_KERNELS = ("mc_masks", "cluster_scalar_ordered", "cluster_scalar")
+# the large mesh: the bunny subdivided LEVELS times, child k of face p is
+# 4p + k, so face_id // 4**LEVELS is the bunny face a hit lies on
+LEVELS = 5
+LARGE_TRIS = BUNNY_COUNTS[1] * 4 ** LEVELS
+# fp32 operations per test of the scalar-broadcast kernels: a slab test is
+# 6 sub + 6 mul + 6 pairwise min/max + 4 to combine them + 3 compares; a
+# Möller-Trumbore test 27 mul + 18 add/sub + 1 division (its 8 compares
+# not counted)
+SLAB_OPS = 25
+TRI_OPS = 46
+# large-mesh frame against the bunny's: shares that must agree, against the
+# brute force (Möller-Trumbore, as the scalar tier) on hit/miss, face and
+# depth; against the resident cast (Plücker sign tests, which can miss both
+# faces of an edge a ray passes exactly through) on hit/miss, and on faces
+# to LARGE_FACE_AGREE (the first chip run of this check: 0.998716). On every
+# ray where the two meshes disagree, the frame must equal a brute force of
+# the large mesh itself, so the differences are the meshes', not the walk's
+LARGE_AGREE = 0.999
+LARGE_FACE_AGREE = 0.998
 
 
 def log(*a):
@@ -171,6 +203,71 @@ def profile_step(step, top=8):
                 device_busy_share=busy_us / wall_us)
 
 
+def needed_work(rk, bvh, o, d, depth, hit, max_dist, cells=1 << 25,
+                pairs=1 << 18):
+    """The work any closest-hit walk of the two-level cluster tree must do
+    for rays ``o``/``d`` (R, 3) whose result is ``depth``/``hit``, counted
+    from those inputs and that result, not from a kernel's walk: each ray
+    slab-tests every cluster box and every sub-box it enters nearer than its
+    final depth (max_dist for a miss; the winner's own box included), and
+    tests every triangle of those sub-boxes.
+
+    Returns (slab tests, triangle tests) summed over the rays, and the
+    cluster boxes and sub-boxes that some ray enters, each counted once.
+    """
+    import torch
+    R = o.shape[0]
+    C, nsub = bvh.sub_boxes.shape[:2]
+    best = torch.where(hit, torch.nextafter(depth, torch.full_like(
+        depth, float("inf"))), torch.full_like(depth, float(max_dist)))
+    inv = torch.reciprocal(d)
+    row = [x.view(1, 1, R) for x in (o[:, 0], o[:, 1], o[:, 2])]
+    irow = [x.view(1, 1, R) for x in (inv[:, 0], inv[:, 1], inv[:, 2])]
+    used_c = torch.zeros(C, dtype=torch.bool, device=o.device)
+    used_s = torch.zeros(C * nsub, dtype=torch.bool, device=o.device)
+    n_c = n_s = 0
+    k = max(1, cells // R)
+    for s in range(0, C, k):
+        e = min(s + k, C)
+        ent = rk._slab_useful(bvh.boxes[None, s:e], row, irow,
+                              best.view(1, 1, R))[0]  # (e - s, R)
+        used_c[s:e] = ent.any(dim=1)
+        n_c += int(ent.sum())
+        cj, rj = ent.nonzero().unbind(1)
+        for p in range(0, cj.shape[0], pairs):
+            c, r = cj[p:p + pairs] + s, rj[p:p + pairs]
+            one = [x[r].view(-1, 1, 1) for x in (o[:, 0], o[:, 1], o[:, 2])]
+            ione = [x[r].view(-1, 1, 1) for x in (inv[:, 0], inv[:, 1],
+                                                  inv[:, 2])]
+            sub = rk._slab_useful(bvh.sub_boxes[c], one, ione,
+                                  best[r].view(-1, 1, 1))[..., 0]
+            n_s += int(sub.sum())
+            flat = c[:, None] * nsub + torch.arange(nsub, device=o.device)
+            used_s[flat[sub]] = True
+    return (n_c + n_s, n_s * rk.SUB_SIZE, int(used_c.sum()),
+            int(used_s.sum()))
+
+
+def brute_force_sorted(rk, tri, o, d, max_dist, cells=1 << 25):
+    """Closest hit of rays ``o``/``d`` (n, 3) against every triangle row of
+    ``tri`` (T, 9) = [a, e1, e2], with the scalar kernels' own arithmetic
+    (``_triangle_t``): (depth, index of a smallest t), depth max_dist and
+    index -1 where no t lies below max_dist."""
+    import torch
+    n = o.shape[0]
+    row = [o[:, q].reshape(1, 1, n) for q in range(3)]
+    drow = [d[:, q].reshape(1, 1, n) for q in range(3)]
+    best = torch.full((n,), float(max_dist), device=o.device)
+    idx = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    k = max(1, cells // max(n, 1))
+    for s in range(0, tri.shape[0], k):
+        tmin, m = rk._triangle_t(tri[None, s:s + k], row, drow)[0].min(dim=0)
+        upd = tmin < best
+        best = torch.where(upd, tmin, best)
+        idx = torch.where(upd, s + m, idx)
+    return best, idx
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -191,6 +288,7 @@ def main() -> int:
                                        marching_cubes_soup, render_depth,
                                        sdf_fitting_loss)
     from primitive3d_tpu_torch.core.config import RayCastConfig
+    from primitive3d_tpu_torch.geometry.triangle import subdivide
     from primitive3d_tpu_torch.kernels import _build
     from primitive3d_tpu_torch.kernels import mc_masks as mk
     from primitive3d_tpu_torch.kernels import raycast_kernel as rk
@@ -295,6 +393,29 @@ def main() -> int:
     check(len(stream_args) == 1, "the flagship forward ran no stream cast")
     check(len(scatter_args) == 1, "the flagship backward ran no plane scatter")
 
+    # -- 3c. the large-mesh path, once, counted -------------------------------
+    o_b = torch.from_numpy(cam_b.origins).to(dev)
+    d_b = torch.from_numpy(cam_b.dirs).to(dev)
+
+    def serve_large():
+        v0, f0 = marching_cubes(bunny, 0.0, scale=1.0)
+        t = v0[f0.long()]
+        for _ in range(LEVELS):
+            t = subdivide(t)
+        v_l = t.reshape(-1, 3)
+        f_l = torch.arange(v_l.shape[0], device=dev).reshape(-1, 3)
+        rc_l = create_raycaster(v_l, f_l, backend="pallas")
+        hits_l = rc_l.cast(cam_b.origins, cam_b.dirs)
+        unordered = rk.cast_clusters(rc_l.cbvh, o_b, d_b, ordered=False)
+        tris_g = rc_l.triangles.clone().requires_grad_()
+        depth_g, prim_g = rk.cast_clusters_diff(tris_g, o_b, d_b)
+        torch.where(prim_g >= 0, depth_g, 0.0).sum().backward()
+        return (v_l, f_l, rc_l, hits_l, unordered,
+                (depth_g.detach(), prim_g, tris_g.grad))
+
+    (v_l, f_l, rc_l, hits_l, (t_u, i_u), (depth_g, prim_g, grad_g)), \
+        large = counted("large-mesh", LARGE_KERNELS, serve_large)
+
     # -- 4. what came out is right -----------------------------------------
     check((v_b.shape[0], f_b.shape[0]) == BUNNY_COUNTS,
           f"bunny mesh {v_b.shape[0]} / {f_b.shape[0]}, want {BUNNY_COUNTS}")
@@ -341,6 +462,71 @@ def main() -> int:
         check(torch.allclose(outs[0][0][same], outs[1][0][same], rtol=1e-5,
                              atol=1e-6), "small sphere: depth differs")
     log("small sphere: card equals CPU at both tiers")
+
+    # -- 4c. the large-mesh frame is the bunny's ----------------------------
+    C_l, S_l = rc_l.cbvh.tri_data.shape[:2]
+    check(rc_l.num_triangles == LARGE_TRIS and not rc_l.use_mxu
+          and (C_l, S_l) == (-(-LARGE_TRIS // 256), 256),
+          f"large mesh: {rc_l.num_triangles} triangles, {C_l} clusters of "
+          f"{S_l}, scalar tier {not rc_l.use_mxu}")
+    fid_l, fid_0 = hits_l.face_id, hits_b.face_id
+    check(bool(torch.isfinite(hits_l.depth).all()
+               and torch.isfinite(hits_l.normals).all())
+          and bool(((fid_l >= -1) & (fid_l < LARGE_TRIS)).all()),
+          "large mesh: non-finite output or face ids out of range")
+    # two yardsticks at level 0: the resident cast of the serving path, and
+    # the brute force, whose Möller-Trumbore test is the scalar tier's
+    hits_bf = create_raycaster(v_b, f_b, backend="bruteforce").cast(
+        cam_b.origins, cam_b.dirs)
+    agreement = {}
+    for name, ref in (("resident cast", hits_b), ("brute force", hits_bf)):
+        fid_r = ref.face_id
+        both = (fid_l >= 0) & (fid_r >= 0)
+        hm = float(((fid_l >= 0) == (fid_r >= 0)).float().mean())
+        same_face = (fid_l // 4 ** LEVELS == fid_r) & both
+        face = float(same_face.sum()) / max(1, int(both.sum()))
+        rel = (hits_l.depth - ref.depth).abs() / ref.depth
+        close = float((rel[both] <= 1e-5).float().mean())
+        other = both & ~same_face
+        nearer = int((other & (hits_l.depth < ref.depth)).sum())
+        agreement[name] = (hm, face, close)
+        log(f"large mesh against the bunny's {name}: hit/miss agree "
+            f"{hm:.6f}, face // {4 ** LEVELS} agrees on {face:.6f} of "
+            f"{int(both.sum())} common hits, depth within 1e-5 relative on "
+            f"{close:.6f} of them (max {float(rel[same_face].max()):.3g} "
+            f"where the face agrees); {int(other.sum())} other faces, "
+            f"{nearer} of them nearer on the large mesh")
+    log(f"large mesh: {rc_l.num_triangles} triangles, {C_l} clusters of "
+        f"{S_l}; level 0: the brute force and the resident cast agree on "
+        f"{float((hits_bf.face_id == fid_0).float().mean()):.6f} of face ids")
+    hm, face, close = agreement["brute force"]
+    check(min(hm, face, close) >= LARGE_AGREE,
+          "large mesh: the frame disagrees with the bunny's brute force")
+    hm, face, close = agreement["resident cast"]
+    check(hm >= LARGE_AGREE and face >= LARGE_FACE_AGREE,
+          "large mesh: the frame disagrees with the bunny's resident cast")
+    # the differentiable cast at 27M triangles: its hits are the caster's,
+    # its depth the caster's refined depth, and the gradient reaches only
+    # the triangles that were hit
+    diff_same = prim_g == fid_l
+    diff_agree = float(diff_same.float().mean())
+    hd = diff_same & (fid_l >= 0)
+    derr = float((depth_g[hd] - hits_l.depth[hd]).abs().max())
+    gflat = grad_g.reshape(LARGE_TRIS, 9)
+    touched = torch.zeros(LARGE_TRIS, dtype=torch.bool, device=dev)
+    touched[prim_g[prim_g >= 0].long()] = True
+    nz = gflat.abs().amax(dim=1) > 0
+    log(f"cast_clusters_diff (27M triangles, clusters of 128): prim equals "
+        f"the caster's face id on {diff_agree:.6f} of rays, depth max "
+        f"difference {derr:.3g} where equal; gradient finite "
+        f"{bool(torch.isfinite(gflat).all())}, on {int(nz.sum())} "
+        f"triangles of {int(touched.sum())} hit")
+    check(diff_agree >= LARGE_AGREE and derr <= 1e-5 * float(
+        hits_l.depth[hd].max()), "cast_clusters_diff differs from the caster")
+    check(bool(torch.isfinite(gflat).all()) and bool(nz.any())
+          and not bool((nz & ~touched).any()),
+          "cast_clusters_diff: gradient off the hit triangles")
+    del grad_g, gflat, touched, nz
 
     # -- 4b. the training step is right --------------------------------------
     loss_v = loss_f.item()
@@ -435,7 +621,7 @@ def main() -> int:
           "the fitting loss did not go down")
 
     # -- 5. each kernel against its plain version at the path's shapes -----
-    launches = {k: serving[k] + training[k] for k in serving}
+    launches = {k: serving[k] + training[k] + large[k] for k in serving}
     kernels = []
 
     cx, cy, cz, cm = mk.fused_masks(sphere_dev, 0.0)
@@ -595,6 +781,187 @@ def main() -> int:
         f"(C, B) list view {cm_ms:.4f} ms (plain {pms:.3f} ms, index_add_ "
         f"{lms:.4f} ms); {C4} clusters x {B4} blocks, {hit_rays} rays with "
         f"a winner, bound {sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+    # the scalar-broadcast kernels on the large path's inputs: the whole
+    # frame on the card, then a set of ray blocks against the plain version:
+    # a silhouette pair (hits and misses), the block whose ordered walk
+    # exits earliest, and the last block (the second wave over the SMs)
+    bvh_l = rc_l.cbvh
+    R_b = o_b.shape[0]
+    pad = (-R_b) % rk.RAY_BLOCK
+    op = torch.cat([o_b, torch.zeros((pad, 3), device=dev)])
+    dp = torch.cat([d_b, torch.ones((pad, 3), device=dev)])
+    B_l = op.shape[0] // rk.RAY_BLOCK
+    rays_l = torch.cat([op, dp], dim=1).T.contiguous()
+
+    def prep_l():
+        return rk._order_and_bounds(bvh_l, op, B_l)
+
+    order_l, gb_l = prep_l()
+    nsub = S_l // rk.SUB_SIZE
+    G_l = -(-C_l // rk.GROUP)
+    scalar = {}
+    for kern, ordered in ((rk.SCALAR_ORDERED, True), (rk.SCALAR, False)):
+        counts = torch.zeros((B_l, 3), dtype=torch.int32, device=dev)
+        head = (order_l, gb_l) if ordered else ()
+        fn = rk.cluster_scalar_ordered if ordered else rk.cluster_scalar
+        args = head + (bvh_l, rays_l, rc_l.max_dist)
+        dk, ik = fn(*args, counts=counts)
+        ms = event_ms(lambda: fn(*args), iters=5 if ordered else 3,
+                      warmup=1)
+        scalar[ordered] = (dk, ik, ms, counts.to(torch.int64))
+    walked = scalar[True][3][:, 0]
+    hit_blk = (scalar[True][1] >= 0).float().view(B_l, -1).mean(dim=1)
+    sil = ((hit_blk > 0.1) & (hit_blk < 0.9)).tolist()
+    k0 = next(k for k in range(B_l - 1) if sil[k] and sil[k + 1])
+    k_exit = int(walked.argmin())
+    check(int(walked[k_exit]) < G_l,
+          "no ray block of the large frame exits its walk early")
+    blocks = sorted({k0, k0 + 1, k_exit, B_l - 1})
+    bsel = torch.tensor(blocks, device=dev)
+    rays_run = rays_l.view(6, B_l, rk.RAY_BLOCK)[:, bsel].reshape(6, -1)
+    log(f"scalar kernels against their plain version on ray blocks {blocks} "
+        f"of {B_l}: hit shares "
+        f"{[round(float(hit_blk[k]), 3) for k in blocks]}, ordered groups "
+        f"walked {[int(walked[k]) for k in blocks]} of {G_l}")
+
+    # one bound for both rows, the same function: the work that the frame's
+    # result says any walk of this tree must do, counted per ray
+    dk_o, ik_o = scalar[True][0][:R_b], scalar[True][1][:R_b]
+    slabs_n, tris_n, boxes_n, subs_n = needed_work(
+        rk, bvh_l, o_b, d_b, dk_o, ik_o >= 0, rc_l.max_dist)
+    ops_n = slabs_n * SLAB_OPS + tris_n * TRI_OPS
+    bytes_n = (nbytes(o_b, d_b, dk_o, ik_o) + (boxes_n + subs_n) * 24
+               + subs_n * rk.SUB_SIZE * 36)
+    t_ops = ops_n / FP32_FLOP_PER_S * 1e3
+    t_bytes = bytes_n / HBM_BYTES_PER_S * 1e3
+    bound_l = max(t_ops, t_bytes)
+    log(f"scalar kernels' bound (large frame, {R_b} rays): {slabs_n} slab "
+        f"tests ({slabs_n / R_b:.1f} per ray) and {tris_n} triangle tests "
+        f"({tris_n / R_b:.1f} per ray) the frame's depth needs, {ops_n:.4g} "
+        f"operations, {boxes_n} cluster boxes and {subs_n} sub-boxes entered "
+        f"by some ray, {bytes_n} bytes; bound {bound_l:.4f} ms (operations "
+        f"{t_ops:.4f}, bytes {t_bytes:.4f})")
+    for kern, ordered in ((rk.SCALAR_ORDERED, True), (rk.SCALAR, False)):
+        dk, ik, ms, c64 = scalar[ordered]
+        ta = torch.cuda.Event(enable_timing=True)
+        tb = torch.cuda.Event(enable_timing=True)
+        ta.record()
+        dpl, ipl = rk.cluster_scalar_plain(
+            order_l[bsel] if ordered else None,
+            gb_l[bsel] if ordered else None, bvh_l, rays_run, rc_l.max_dist,
+            ordered=ordered)
+        tb.record()
+        torch.cuda.synchronize()
+        pms = ta.elapsed_time(tb)
+        dsel = dk.view(B_l, -1)[bsel].reshape(-1)
+        isel = ik.view(B_l, -1)[bsel].reshape(-1)
+        check(torch.equal(dsel, dpl) and torch.equal(isel, ipl),
+              f"{kern.name}: differs from its plain version on ray blocks "
+              f"{blocks}")
+        err = float((dsel - dpl).abs().max())
+        groups, flagged, tested = (int(x) for x in c64.sum(dim=0))
+        # the kernel's own walk, for each of a block's ray lanes: every
+        # cluster of each walked group (the last group holds C - 32 (G - 1)),
+        # the sub-boxes of each flagged cluster, the triangles tested
+        full = c64[:, 0] == G_l
+        slabs = int((c64[:, 0] * rk.GROUP - full * (G_l * rk.GROUP - C_l)
+                     ).sum()) + (flagged * nsub if ordered else 0)
+        kernels.append(dict(
+            name=kern.name, route="cuda",
+            source="primitive3d_tpu_torch/csrc/cluster_scalar.cu",
+            replaces=kern.replaces, launches=launches[kern.name],
+            max_abs_err=err, ms=ms, plain_ms=pms, plain_blocks=len(blocks),
+            bound_ms=bound_l,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None))
+        log(f"{kern.name} (large mesh, {B_l} blocks, {C_l} clusters of "
+            f"{S_l}): equals its plain version bit for bit on blocks "
+            f"{blocks}; {ms:.3f} ms (plain, {len(blocks)} blocks, "
+            f"{pms:.1f} ms); walk: {groups} groups of {B_l * G_l} "
+            f"({groups / B_l:.1f} per block), {flagged} clusters flagged, "
+            f"{slabs} slab and {tested} triangle tests per ray lane, so "
+            f"{slabs * rk.RAY_BLOCK / slabs_n:.1f}x the needed slab tests and "
+            f"{tested * rk.RAY_BLOCK / tris_n:.1f}x the needed triangle "
+            f"tests; {ms / bound_l:.1f}x the bound")
+    (dk_o, ik_o, ms_o, _), (dk_u, ik_u, _, _) = scalar[True], scalar[False]
+
+    # the rays on which the large frame disagrees with a level-0 yardstick:
+    # the 27M mesh itself brute-forced on them, every triangle row in sorted
+    # space with the kernels' arithmetic; the frame must equal it
+    lvl = fid_l // 4 ** LEVELS
+    disputed = ((lvl != fid_0) | (lvl != hits_bf.face_id)).nonzero()[:, 0]
+    tri_flat = bvh_l.tri_data.view(-1, 9)
+    o_x, d_x = o_b[disputed], d_b[disputed]
+    bt, bi = brute_force_sorted(rk, tri_flat, o_x, d_x, rc_l.max_dist)
+    kd, ki = dk_o[disputed], ik_o[disputed].to(torch.int64)
+    kt = rk._triangle_t(tri_flat[ki.clamp(min=0)][:, None],
+                        [o_x[:, q].reshape(-1, 1, 1) for q in range(3)],
+                        [d_x[:, q].reshape(-1, 1, 1) for q in range(3)]
+                        ).reshape(-1)
+    hit_x = bi >= 0
+    same_id = int((ki == bi).sum())
+    ties = int(((ki != bi) & hit_x & (kt == bt)).sum())
+    log(f"large mesh, the {disputed.shape[0]} rays where it disagrees with "
+        f"the level-0 resident cast or brute force, brute-forced over all "
+        f"{tri_flat.shape[0]} triangle rows: depth bit-equal "
+        f"{torch.equal(kd, bt)}, hit/miss equal "
+        f"{torch.equal(ki >= 0, hit_x)}, {int(hit_x.sum())} hits, the same "
+        f"triangle on {same_id} rays and an exact depth tie on {ties}")
+    check(torch.equal(kd, bt) and torch.equal(ki >= 0, hit_x)
+          and same_id + ties == disputed.shape[0],
+          "large mesh: the frame differs from the brute force of the 27M "
+          "mesh on the disputed rays")
+    del tri_flat, bt, bi, kd, ki, kt
+    uo_err = float((dk_u - dk_o).abs().max())
+    uo_same = float((ik_u == ik_o).float().mean())
+    log(f"unordered vs ordered kernel, whole frame: depth max difference "
+        f"{uo_err:.3g}, ids equal on {uo_same:.6f}; the path's "
+        f"cast_clusters(ordered=False) equals the kernel: "
+        f"{torch.equal(t_u, dk_u[:R_b]) and torch.equal(i_u, ik_u[:R_b])}")
+    check(uo_err <= 1e-6 and uo_same >= 0.99,
+          "the unordered kernel disagrees with the ordered one")
+    check(torch.equal(t_u, dk_u[:R_b]) and torch.equal(i_u, ik_u[:R_b]),
+          "cast_clusters(ordered=False) differs from its kernel")
+
+    # the large path's stage times
+    t_build = event_ms(lambda: create_raycaster(v_l, f_l, backend="pallas"),
+                       iters=2, warmup=0)
+    t_prep = event_ms(prep_l, iters=3, warmup=1)
+    t_cast = event_ms(lambda: rc_l.cast(o_b, d_b), iters=3, warmup=1)
+    stage["large"] = dict(build_ms=t_build, prep_ms=t_prep, kernel_ms=ms_o,
+                          cast_ms=t_cast, mrays_per_s=R_b / (t_cast * 1e3),
+                          rays=R_b, triangles=LARGE_TRIS)
+    log(f"path large mesh: cluster build {t_build:.3f} ms, order and bounds "
+        f"{t_prep:.3f} ms, kernel {ms_o:.3f} ms, cast {t_cast:.3f} ms = "
+        f"{R_b / (t_cast * 1e3):.3f} Mrays/s")
+    del v_l, f_l, rc_l, bvh_l, order_l, scalar, dk_o, dk_u, ik_o, ik_u
+
+    # the other backends on the bunny against the cluster caster
+    for backend in ("mxu", "bruteforce", "bvh"):
+        ta = torch.cuda.Event(enable_timing=True)
+        tb = torch.cuda.Event(enable_timing=True)
+        tc = torch.cuda.Event(enable_timing=True)
+        ta.record()
+        rc_x = create_raycaster(v_b, f_b, backend=backend)
+        tb.record()
+        hx = rc_x.cast(cam_b.origins, cam_b.dirs)
+        tc.record()
+        torch.cuda.synchronize()
+        same = hx.face_id == fid_0
+        agree = float(same.float().mean())
+        hm = float(((hx.face_id >= 0) == (fid_0 >= 0)).float().mean())
+        ok = torch.allclose(hx.depth[same], hits_b.depth[same], rtol=1e-5,
+                            atol=1e-6)
+        log(f"backend {backend} on the bunny: build {ta.elapsed_time(tb):.3f}"
+            f" ms, cast {tb.elapsed_time(tc):.3f} ms; face ids equal the "
+            f"cluster caster's on {agree:.6f} of rays, hit/miss on {hm:.6f}, "
+            f"depth allclose where equal: {ok}")
+        check(agree >= LARGE_AGREE and ok,
+              f"backend {backend} disagrees with the cluster caster")
+        stage[f"bunny_{backend}"] = dict(build_ms=ta.elapsed_time(tb),
+                                         cast_ms=tb.elapsed_time(tc))
+        del rc_x, hx
 
     # -- 6b. the training path's stage times ----------------------------------
     dens_t = sphere_dev.clone().requires_grad_()

@@ -28,6 +28,12 @@ gradient to the grid):
                                 backend="pallas")
     loss.backward()
 
+The third slice adds the cluster caster's scalar-broadcast tier, which
+``create_raycaster`` takes by itself for meshes past 32767 clusters (a
+photogrammetry or LiDAR mesh of tens of millions of triangles), and the
+other backends of the JAX package: ``"mxu"``, ``"bruteforce"`` and
+``"bvh"``.
+
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` (or ``cpu=True`` to ``marching_cubes``); without a card
 they raise.

@@ -145,6 +145,23 @@ def build_mxu_clusters(tris: Tensor, cluster_size: int = CLUSTER_SIZE,
                          fin.contiguous())
 
 
+def _put(x, dtype, dev: torch.device) -> Tensor:
+    """A writable, contiguous copy of array ``x`` on ``dev``."""
+    return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(dev)
+
+
+def from_jax_cluster_bvh(boxes, sub_boxes, tri_data, prim_order,
+                         device: DeviceLike = "cuda") -> ClusterBVH:
+    """The port's ``ClusterBVH`` from the JAX package's fields (numpy
+    arrays of the same layout), so one cluster structure can feed both
+    scalar-broadcast casters."""
+    dev = resolve_device(device)
+    return ClusterBVH(_put(boxes, np.float32, dev),
+                      _put(sub_boxes, np.float32, dev),
+                      _put(tri_data, np.float32, dev),
+                      _put(prim_order, np.int32, dev))
+
+
 def from_jax_clusters(boxes, w2, prim_order, fin,
                       device: DeviceLike = "cuda") -> MxuClusterBVH:
     """The port's structure from the JAX package's ``MxuClusterBVH`` fields.
@@ -165,11 +182,7 @@ def from_jax_clusters(boxes, w2, prim_order, fin,
     rows[:, 18:22] = w[:, 6:10, 3]  # numerator column: [o, 1] = rows 6..9
     f = np.asarray(fin).astype(np.float32)
     fin8 = f[:, 0:8] + f[:, 8:16] + f[:, 16:24]  # (C, 8, S)
-
-    def put(x, dtype):  # a writable, contiguous copy
-        return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(dev)
-
-    return MxuClusterBVH(put(boxes, np.float32),
-                         put(rows.transpose(0, 2, 1), np.float32),
-                         put(prim_order, np.int32),
-                         put(fin8.transpose(0, 2, 1), np.float32))
+    return MxuClusterBVH(_put(boxes, np.float32, dev),
+                         _put(rows.transpose(0, 2, 1), np.float32, dev),
+                         _put(prim_order, np.int32, dev),
+                         _put(fin8.transpose(0, 2, 1), np.float32, dev))

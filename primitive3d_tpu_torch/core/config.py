@@ -5,9 +5,9 @@
     res = marching_cubes_padded(grid, 0.0, config=cfg.marching_cubes)
 
 Explicit keyword arguments always override config fields. Counterpart of
-``primitive3d_tpu/core/config.py``, with the same defaults; fields of
-backends not ported yet (``mxu_chunk``) and the JAX package's obsolete
-compaction budgets (``vert_units``, ``cube_units``) are left out.
+``primitive3d_tpu/core/config.py``, with the same defaults; the JAX
+package's obsolete compaction budgets (``vert_units``, ``cube_units``) are
+left out.
 """
 from __future__ import annotations
 
@@ -17,11 +17,11 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class RayCastConfig:
-    # "auto" and "pallas" both name the cluster kernel (raycast.py); the
-    # other backends of the JAX package are not ported yet and raise
+    # "auto" and "pallas" both name the cluster kernels (raycast.py)
     backend: str = "auto"  # auto | pallas | mxu | bvh | bruteforce
     max_dist: float = 10.0
     cluster_size: Optional[int] = None  # None = 128, or 256 past 500k tris
+    mxu_chunk: int = 512  # triangles per matrix product ("mxu" backend)
     # mesh-size tiers of the cluster caster (see raycast.ClusterRayCaster)
     # resident tier up to here, stream above; None = the caster's
     # ClusterRayCaster.MXU_MAX_TRIS (32,000)

@@ -20,11 +20,20 @@ Two kernels consume them, each with its wrapper and launch count:
 its kernel for CUDA tensors and runs ``cluster_cast_plain`` for CPU
 tensors; there is no fallback between the two.
 
+Past STREAM_MAX_CLUSTERS clusters (the stream word's 15-bit cluster id)
+the casters take the scalar-broadcast tier, ``cast_clusters`` (the JAX
+function of that name): rays in blocks of RAY_BLOCK = 1024, each walking
+the clusters in groups of GROUP = 32, ordered front to back per block by
+``_order_and_bounds`` with an early exit, or in index order. Its kernels
+are ``cluster_scalar_ordered`` and ``cluster_scalar``
+(``csrc/cluster_scalar.cu``), with the plain version
+``cluster_scalar_plain``.
+
 The differentiable cast ``cast_clusters_diff`` (counterpart of the JAX
 function of that name and its custom VJPs) finds hits with those kernels
 and recomputes depth from the winners' planes. Its stream-tier backward is
-a third kernel, ``plane_scatter`` (``csrc/plane_scatter.cu``, plain version
-``plane_scatter_plain``), which walks the forward's work list.
+a further kernel, ``plane_scatter`` (``csrc/plane_scatter.cu``, plain
+version ``plane_scatter_plain``), which walks the forward's work list.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..bvh.clusters import SUB_SIZE
 from ..geometry.triangle import dot3
 from . import _build
 
@@ -46,6 +56,9 @@ MAX_CLUSTER_SIZE = 256
 _CULL_ELEMS = 1 << 23  # (block, chunk, cluster) cells per cull pass
 _PLAIN_VISITS = 128  # visits per batch of the plain cast (~0.3 GB of temps)
 _I64_MAX = torch.iinfo(torch.int64).max
+# the stream word packs (cluster_id << 16) | chunk mask in an int32: past
+# this many clusters the casters take the scalar-broadcast tier
+STREAM_MAX_CLUSTERS = 32767
 
 _CAST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -360,11 +373,10 @@ def _cast_with_list(bvh, origins: Tensor, dirs: Tensor, max_dist: float,
     """Prep and cast: (depth, idx, fin rows) of the R rays and the work list
     ``(n, work)`` of the rays padded to a multiple of MBLOCK with o = 0,
     d = 1 (the backward scatter walks the same list)."""
-    if stream and bvh.num_clusters > 32767:
-        # the stream word packs (cluster_id << 16) | chunk mask in an int32
+    if stream and bvh.num_clusters > STREAM_MAX_CLUSTERS:
         raise ValueError(
-            f"stream tier supports at most 32767 clusters, got "
-            f"{bvh.num_clusters}; raise cluster_size")
+            f"stream tier supports at most {STREAM_MAX_CLUSTERS} clusters, "
+            f"got {bvh.num_clusters}; raise cluster_size")
     R = origins.shape[0]
     pad = (-R) % MBLOCK
     dev = origins.device
@@ -397,6 +409,285 @@ def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
     (depth, idx, finr), _ = _cast_with_list(bvh, origins, dirs, max_dist,
                                             stream, with_fin, edge_wildcard)
     return (depth, idx, finr) if with_fin else (depth, idx)
+
+
+# --- scalar-broadcast tier: meshes past STREAM_MAX_CLUSTERS clusters ---------
+
+RAY_BLOCK = 1024  # rays per block of the scalar-broadcast kernels
+GROUP = 32  # clusters per cull group
+_SCALAR_CULL_ELEMS = 1 << 22  # (block, cluster, ray) cells per cull pass
+
+_SCALAR_ARGS = [ctypes.c_void_p] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float] + [ctypes.c_void_p] * 3
+SCALAR_ORDERED = _build.Kernel(
+    "cluster_scalar_ordered", "cluster_scalar.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:45",
+    argtypes=[ctypes.c_void_p] * 3 + _SCALAR_ARGS)
+SCALAR = _build.Kernel(
+    "cluster_scalar", "cluster_scalar.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:219",
+    argtypes=_SCALAR_ARGS)
+
+
+def _block_mean(x: Tensor) -> Tensor:
+    """Mean of (B, n, 3) over n, a power of two, by pairwise halving: the
+    same sums in the same order on every device."""
+    n = x.shape[1]
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0] / n
+
+
+def _order_and_bounds(bvh, o: Tensor, B: int) -> Tuple[Tensor, Tensor]:
+    """Per-ray-block front-to-back cluster order (B, C) int32 and the entry
+    bound of each group of GROUP (B, G) float32.
+
+    A unit-direction ray travels at least the point-box distance from its
+    block's mean origin, less the block's origin spread, before it enters a
+    box; groups take the bound of their first (nearest) cluster. ``o`` is
+    (B * RAY_BLOCK, 3), padded as the cast pads it. The sort is stable, as
+    ``jnp.argsort`` is.
+    """
+    ob = o.reshape(B, RAY_BLOCK, 3)
+    mo = _block_mean(ob)
+    off = ob - mo[:, None]
+    spread = torch.sqrt(dot3(off, off)).amax(dim=1)
+    m = mo[:, None]
+    gap = torch.clamp(torch.maximum(bvh.boxes[None, :, :3] - m,
+                                    m - bvh.boxes[None, :, 3:]), min=0.0)
+    bound = torch.clamp(torch.sqrt(dot3(gap, gap)) - spread[:, None],
+                        min=0.0)
+    order = torch.argsort(bound, dim=1, stable=True)
+    sb = torch.gather(bound, 1, order)
+    C = bound.shape[1]
+    pad = (-C) % GROUP
+    sb = torch.cat([sb, sb.new_full((B, pad), float("inf"))], dim=1)
+    return order.to(torch.int32).contiguous(), sb[:, ::GROUP].contiguous()
+
+
+def _slab_useful(bx: Tensor, o, inv, best: Tensor) -> Tensor:
+    """Slab test of boxes ``bx`` (n, k, 6) against the rays of n blocks:
+    ``o``/``inv`` three (n, 1, RAY_BLOCK) rows each, ``best`` (n, 1,
+    RAY_BLOCK) -> (n, k, RAY_BLOCK) bool. The arithmetic of
+    csrc/cluster_scalar.cu; min and max propagate NaN, so an axis-parallel
+    ray whose origin lies on a box plane (0 * inf) culls the box."""
+    t0 = [(bx[..., a, None] - o[a]) * inv[a] for a in range(3)]
+    t1 = [(bx[..., a + 3, None] - o[a]) * inv[a] for a in range(3)]
+    lo = [torch.minimum(x, y) for x, y in zip(t0, t1)]
+    hi = [torch.maximum(x, y) for x, y in zip(t0, t1)]
+    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tmax = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return (tmin <= tmax) & (tmax >= 0.0) & (tmin < best)
+
+
+def _triangle_t(tri: Tensor, o, d) -> Tensor:
+    """Möller-Trumbore t of the rays of n blocks (``o``/``d`` three (n, 1,
+    RAY_BLOCK) rows each) against triangle rows ``tri`` (n, k, 9) = [a, e1,
+    e2] -> (n, k, RAY_BLOCK), inf where the test fails. The arithmetic of
+    csrc/cluster_scalar.cu, in the JAX kernel's order."""
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (tri[..., q, None]
+                                                 for q in range(9))
+    ox, oy, oz = o
+    dx, dy, dz = d
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    det = e1x * hx + e1y * hy + e1z * hz
+    f = torch.reciprocal(torch.where(det == 0.0, 1e-30, det))
+    sx, sy, sz = ox - ax, oy - ay, oz - az
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = ((det != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 0.0))
+    return torch.where(ok, t, float("inf"))
+
+
+def cluster_scalar_plain(order: Optional[Tensor], gbound: Optional[Tensor],
+                         bvh, rays: Tensor, max_dist: float,
+                         ordered: bool = True) -> Tuple[Tensor, Tensor]:
+    """Plain version of both scalar-broadcast kernels: (depth (Rp,), sorted
+    idx (Rp,)).
+
+    The kernels' walk, vectorised over the ray blocks in lock-step. Per
+    group, the clusters are culled with each ray's best at the group's
+    start; the flagged ones are taken in group order, each (ordered) with
+    its sub-boxes culled at the cluster's start; a cluster's tested
+    triangles give the first smallest t, taken where it is below the ray's
+    best, which is the kernels' sequential strict update. Ordered blocks
+    stop at the first group whose entry bound every ray's best has reached.
+
+    A cluster that no ray of a block enters nearer than max_dist is never
+    flagged for that block, whatever the walk's best, so only the groups
+    and clusters that hold such a candidate for some block are walked; best
+    does not change between them and the bounds rise, so the exit checked
+    there stops a block where the kernel does. Ray blocks are independent:
+    a run of blocks (their rows of ``order``, ``gbound`` and ``rays``) gives
+    those blocks' results.
+    """
+    dev = rays.device
+    Rp = rays.shape[1]
+    B = Rp // RAY_BLOCK
+    C, S = bvh.tri_data.shape[:2]
+    G = -(-C // GROUP)
+    o = [rays[q].view(B, 1, RAY_BLOCK) for q in range(3)]
+    d = [rays[3 + q].view(B, 1, RAY_BLOCK) for q in range(3)]
+    inv = [torch.reciprocal(x) for x in d]
+    best = torch.full((B, RAY_BLOCK), float(max_dist), dtype=torch.float32,
+                      device=dev)
+    bidx = torch.full((B, RAY_BLOCK), -1, dtype=torch.int32, device=dev)
+    seq = (order.to(torch.int64) if ordered
+           else torch.arange(C, device=dev).expand(B, C))
+    cand = torch.zeros((B, G * GROUP), dtype=torch.bool, device=dev)
+    step = max(1, _SCALAR_CULL_ELEMS // (B * RAY_BLOCK))
+    for s in range(0, C, step):
+        e = min(s + step, C)
+        cand[:, s:e] = _slab_useful(bvh.boxes[seq[:, s:e]], o, inv,
+                                    best[:, None]).any(-1)
+    cand = cand.view(B, G, GROUP)
+    walk = cand.any(dim=0).cpu()  # (G, GROUP): a candidate for some block
+    live = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    for g in walk.any(dim=1).nonzero()[:, 0].tolist():
+        if ordered:
+            live = live & ~(best <= gbound[:, g, None]).all(dim=1,
+                                                            keepdim=True)
+        js = walk[g].nonzero()[:, 0].to(dev)
+        cs = seq[:, g * GROUP + js]  # (B, nj)
+        flags = (_slab_useful(bvh.boxes[cs], o, inv, best[:, None]).any(-1)
+                 & cand[:, g, js] & live)
+        for k in range(cs.shape[1]):
+            c = cs[:, k]
+            if ordered:
+                sub = (_slab_useful(bvh.sub_boxes[c], o, inv, best[:, None])
+                       .any(-1) & flags[:, k, None])
+                tmask = sub.repeat_interleave(SUB_SIZE, dim=1)
+            else:
+                tmask = flags[:, k, None].expand(B, S)
+            t = torch.where(tmask[..., None],
+                            _triangle_t(bvh.tri_data[c], o, d), float("inf"))
+            tmin, m = t.min(dim=1)
+            upd = tmin < best
+            best = torch.where(upd, tmin, best)
+            bidx = torch.where(upd, (c[:, None] * S + m).to(torch.int32),
+                               bidx)
+    return best.reshape(Rp), bidx.reshape(Rp)
+
+
+def _check_scalar_inputs(bvh, rays: Tensor, order, gbound) -> None:
+    tri = bvh.tri_data
+    if tri.dim() != 3 or tri.shape[2] != 9 or tri.dtype != torch.float32:
+        raise ValueError(f"tri_data must be (C, S, 9) float32, got "
+                         f"{tri.dtype} {tuple(tri.shape)}")
+    C, S = tri.shape[:2]
+    if tuple(bvh.boxes.shape) != (C, 6) or bvh.boxes.dtype != torch.float32:
+        raise ValueError(f"boxes must be ({C}, 6) float32")
+    if (rays.dim() != 2 or rays.shape[0] != 6 or rays.shape[1] % RAY_BLOCK
+            or rays.dtype != torch.float32):
+        raise ValueError(f"rays must be (6, Rp) float32 with Rp % "
+                         f"{RAY_BLOCK} == 0")
+    B = rays.shape[1] // RAY_BLOCK
+    tensors = [bvh.boxes, tri, rays]
+    if order is not None:
+        nsub = S // SUB_SIZE
+        if S % SUB_SIZE or nsub > 32:
+            raise ValueError(f"ordered cast needs S % {SUB_SIZE} == 0 and "
+                             f"S <= {32 * SUB_SIZE}, got {S}")
+        if (tuple(bvh.sub_boxes.shape) != (C, nsub, 6)
+                or bvh.sub_boxes.dtype != torch.float32):
+            raise ValueError(f"sub_boxes must be ({C}, {nsub}, 6) float32")
+        if tuple(order.shape) != (B, C) or order.dtype != torch.int32:
+            raise ValueError(f"order must be ({B}, {C}) int32")
+        G = -(-C // GROUP)
+        if tuple(gbound.shape) != (B, G) or gbound.dtype != torch.float32:
+            raise ValueError(f"gbound must be ({B}, {G}) float32")
+        tensors += [bvh.sub_boxes, order, gbound]
+    for t in tensors:
+        if t.device != rays.device:
+            raise ValueError("all cast inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("cast inputs must be contiguous")
+
+
+def _scalar(kernel, order, gbound, bvh, rays, max_dist, counts):
+    ordered = order is not None
+    _check_scalar_inputs(bvh, rays, order, gbound)
+    if rays.device.type == "cpu":
+        return cluster_scalar_plain(order, gbound, bvh, rays, max_dist,
+                                    ordered)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    dev = rays.device
+    C, S = bvh.tri_data.shape[:2]
+    Rp = rays.shape[1]
+    B = Rp // RAY_BLOCK
+    if counts is not None and (tuple(counts.shape) != (B, 3)
+                               or counts.dtype != torch.int32
+                               or counts.device != dev):
+        raise ValueError(f"counts must be ({B}, 3) int32 on {dev}")
+    depth = torch.empty((Rp,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Rp,), dtype=torch.int32, device=dev)
+    head = ([order.data_ptr(), gbound.data_ptr(), bvh.boxes.data_ptr(),
+             bvh.sub_boxes.data_ptr()] if ordered else [bvh.boxes.data_ptr()])
+    with torch.cuda.device(dev):
+        kernel.launch(*head, bvh.tri_data.data_ptr(), rays.data_ptr(), Rp, B,
+                      C, S, float(max_dist), depth.data_ptr(),
+                      idx.data_ptr(),
+                      counts.data_ptr() if counts is not None else None)
+    return depth, idx
+
+
+def cluster_scalar_ordered(order: Tensor, gbound: Tensor, bvh, rays: Tensor,
+                           max_dist: float, counts: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """Front-to-back scalar-broadcast cast: (depth (Rp,), sorted idx (Rp,)).
+
+    ``bvh`` a :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterBVH`,
+    ``rays`` (6, Rp) rows [o; d], ``order``/``gbound`` from
+    :func:`_order_and_bounds`. ``counts`` (B, 3) int32, if given, receives
+    each block's groups walked, clusters flagged and triangles tested
+    (kernel only)."""
+    return _scalar(SCALAR_ORDERED, order, gbound, bvh, rays, max_dist,
+                   counts)
+
+
+def cluster_scalar(bvh, rays: Tensor, max_dist: float,
+                   counts: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Index-order scalar-broadcast cast, same outputs and ``counts`` as
+    :func:`cluster_scalar_ordered`."""
+    return _scalar(SCALAR, None, None, bvh, rays, max_dist, counts)
+
+
+def cast_clusters(bvh, origins: Tensor, dirs: Tensor, max_dist: float = 10.0,
+                  ordered: bool = True) -> Tuple[Tensor, Tensor]:
+    """Closest hit through the scalar-broadcast kernels: (t, sorted-triangle
+    index) of rays (R, 3); map the index through ``bvh.prim_order`` for face
+    ids.
+
+    Rays are padded to a multiple of RAY_BLOCK with o = 0, d = 1, as the JAX
+    package pads them (the last block's mean origin and spread include the
+    padding). ``ordered`` walks each block's clusters front to back with an
+    early exit; both walks are exact.
+    """
+    R = origins.shape[0]
+    pad = (-R) % RAY_BLOCK
+    dev = origins.device
+    o = torch.cat([origins, torch.zeros((pad, 3), dtype=torch.float32,
+                                        device=dev)])
+    d = torch.cat([dirs, torch.ones((pad, 3), dtype=torch.float32,
+                                    device=dev)])
+    rays = torch.cat([o, d], dim=1).T.contiguous()
+    if ordered:
+        order, gbound = _order_and_bounds(bvh, o, o.shape[0] // RAY_BLOCK)
+        depth, idx = cluster_scalar_ordered(order, gbound, bvh, rays,
+                                            max_dist)
+    else:
+        depth, idx = cluster_scalar(bvh, rays, max_dist)
+    return depth[:R], idx[:R]
 
 
 # --- backward: plane cotangents -> cluster-space rows ------------------------
@@ -529,18 +820,6 @@ class _PlanesSelectWS(torch.autograd.Function):
         return dsorted[:ctx.T], None, None, None, None, None, None
 
 
-def check_stream_cap(T: int, scap: Optional[int] = None) -> None:
-    """Raise if T triangles exceed the cluster kernels' stream tier, above
-    which the JAX package switches to its scalar-broadcast kernel."""
-    from ..bvh.clusters import CLUSTER_SIZE
-    scap = 32767 * CLUSTER_SIZE if scap is None else scap
-    if T > scap:
-        raise NotImplementedError(
-            f"{T} triangles exceed the stream tier's {scap}; the "
-            f"scalar-broadcast cluster kernel is not ported yet (ROADMAP.md "
-            f"Queue 2 items 2-3)")
-
-
 def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
                        max_dist: float = 10.0,
                        mxu_max_tris: Optional[int] = None,
@@ -552,20 +831,26 @@ def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
     assignment is discrete); depth is then recomputed from that triangle's
     plane, ``t = (a.n - o.n) / d.n``, so gradients reach ``tris`` and the
     rays with the hit held fixed. Without ``bvh`` the clusters are built
-    from ``tris.detach()`` in identity order; meshes of more than
-    ``ClusterRayCaster.MXU_MAX_TRIS`` triangles take the stream tier, whose
-    backward runs the plane scatter kernel over the forward's work list.
+    from ``tris.detach()``: in identity order up to ``mxu_stream_max_tris``
+    (default 32767 clusters of 128) triangles, where meshes of more than
+    ``ClusterRayCaster.MXU_MAX_TRIS`` take the stream tier, whose backward
+    runs the plane scatter kernel over the forward's work list; Morton-order
+    clusters of 128 for the scalar-broadcast tier above, whose backward is
+    autograd's own gather backward.
     """
-    from ..bvh.clusters import build_mxu_clusters
+    from ..bvh.clusters import CLUSTER_SIZE, build_clusters, build_mxu_clusters
     from ..raycast import ClusterRayCaster
 
     cap = (ClusterRayCaster.MXU_MAX_TRIS if mxu_max_tris is None
            else mxu_max_tris)
+    scap = (STREAM_MAX_CLUSTERS * CLUSTER_SIZE if mxu_stream_max_tris is None
+            else mxu_stream_max_tris)
     T = tris.shape[0]
-    identity = bvh is None
-    if identity:
-        check_stream_cap(T, mxu_stream_max_tris)
-        bvh = build_mxu_clusters(tris.detach(), order="identity")
+    use_mxu = bvh is not None or T <= scap
+    identity = bvh is None and use_mxu
+    if bvh is None:
+        bvh = (build_mxu_clusters(tris.detach(), order="identity") if use_mxu
+               else build_clusters(tris.detach()))
     stream = T > cap
     # each face's plane [n, a.n], differentiable. The 3-term sums here and
     # below are written out (dot3), so the card and the CPU round alike: a
@@ -573,18 +858,27 @@ def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
     a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
     nrm = torch.linalg.cross(b - a, c - a, dim=-1)
     planes = torch.cat([nrm, dot3(a, nrm)[:, None]], dim=-1)
-    with torch.no_grad():
-        (_, sidx, finr), (n, work) = _cast_with_list(
-            bvh, origins.detach(), dirs.detach(), max_dist, stream,
-            with_fin=True, edge_wildcard=False)
-    fid_f = finr[:, 5]
-    hit = (sidx >= 0) & (fid_f >= 0.0)
-    prim = torch.where(hit, fid_f.to(torch.int32), -1)
-    if identity and stream:
-        pr = _PlanesSelectWS.apply(planes, prim, finr[:, :4], sidx, n, work,
-                                   bvh.cluster_size)
+    if not use_mxu:
+        with torch.no_grad():
+            _, sidx = cast_clusters(bvh, origins.detach(), dirs.detach(),
+                                    max_dist)
+        prim = bvh.prim_order[sidx.clamp(min=0).to(torch.int64)]
+        hit = (sidx >= 0) & (prim >= 0)
+        pr = planes[prim.clamp(min=0).to(torch.int64)]
+        prim = torch.where(hit, prim, -1)
     else:
-        pr = _PlanesSelect.apply(planes, prim, finr[:, :4])
+        with torch.no_grad():
+            (_, sidx, finr), (n, work) = _cast_with_list(
+                bvh, origins.detach(), dirs.detach(), max_dist, stream,
+                with_fin=True, edge_wildcard=False)
+        fid_f = finr[:, 5]
+        hit = (sidx >= 0) & (fid_f >= 0.0)
+        prim = torch.where(hit, fid_f.to(torch.int32), -1)
+        if identity and stream:
+            pr = _PlanesSelectWS.apply(planes, prim, finr[:, :4], sidx, n,
+                                       work, bvh.cluster_size)
+        else:
+            pr = _PlanesSelect.apply(planes, prim, finr[:, :4])
     den = dot3(dirs, pr[:, :3])
     num = pr[:, 3] - dot3(origins, pr[:, :3])
     t = num / torch.where(den == 0, torch.full_like(den, 1e-30), den)

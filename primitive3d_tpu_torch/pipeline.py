@@ -9,7 +9,8 @@ Counterpart of ``primitive3d_tpu/pipeline.py`` (single device):
 Gradients reach the density grid through the extracted vertex positions and
 through the hit triangles' planes. ``backend="pallas"`` extracts a soup
 (``marching_cubes_soup``) and casts it with ``cast_clusters_diff`` on the
-cluster kernels (whose stream-tier backward is the plane scatter kernel);
+cluster kernels (whose stream-tier backward is the plane scatter kernel,
+and which takes the scalar-broadcast tier past 32767 clusters of 128);
 ``backend="mxu"`` extracts the indexed mesh and casts every ray against
 every triangle (``mxu_cast.cast_mxu``). ``"auto"`` takes ``"pallas"`` above
 8192 faces of capacity, as the JAX package does.
@@ -25,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .core.device import DeviceLike, as_tensor, resolve_device
-from .kernels.raycast_kernel import cast_clusters_diff, check_stream_cap
+from .kernels.raycast_kernel import cast_clusters_diff
 from .mxu_cast import cast_mxu, triangle_matrix
 from .ops.marching_cubes import (MCResult, marching_cubes_padded,
                                  marching_cubes_soup)
@@ -72,7 +73,6 @@ def render_depth(
     o = as_tensor(origins, torch.float32, dev).reshape(-1, 3)
     d = as_tensor(dirs, torch.float32, dev).reshape(-1, 3)
     if backend == "pallas":
-        check_stream_cap(int(face_capacity))  # before extracting the soup
         sres = marching_cubes_soup(
             density, thresh, face_capacity=face_capacity, lower=lower,
             upper=upper, active_capacity=active_capacity, device=dev)

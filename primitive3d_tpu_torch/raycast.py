@@ -1,19 +1,27 @@
 """Ray casting against triangle meshes: depth / normal / primitive-id buffers.
 
-Counterpart of ``primitive3d_tpu/raycast.py`` for the cluster backend (the
-JAX package's ``PallasRayCaster``, here ``ClusterRayCaster``). Miss
-semantics are the JAX package's: depth = max_dist (default 10.0),
+Counterpart of ``primitive3d_tpu/raycast.py``, with all four backends of
+the JAX package:
+
+  * ``pallas``: :class:`ClusterRayCaster` (the JAX package's
+    ``PallasRayCaster``) on the card's hand-written cluster kernels, with
+    the JAX package's size tiers: resident, stream, and past 32767 clusters
+    the scalar-broadcast tier;
+  * ``mxu``: :class:`MxuRayCaster`, every ray against every triangle as a
+    matrix product (``mxu_cast.py``);
+  * ``bruteforce``: :class:`BruteForceRayCaster`, Möller-Trumbore over
+    chunks of 512 triangles; exact, the oracle;
+  * ``bvh``: ``bvh.caster.BvhRayCaster``, an LBVH and its stackless
+    traversal.
+
+Miss semantics are the JAX package's: depth = max_dist (default 10.0),
 normal = 0, face_id = -1; hits at t >= max_dist are misses.
 
-Watertightness caveat: by default the kernels' sign-bit test treats an
-exactly-zero Plücker side product (a ray exactly through a shared edge) as
-+0 / -0 rather than as a wildcard, so such a ray can miss both adjacent
+Watertightness caveat: by default the cluster kernels' sign-bit test treats
+an exactly-zero Plücker side product (a ray exactly through a shared edge)
+as +0 / -0 rather than as a wildcard, so such a ray can miss both adjacent
 triangles. ``edge_wildcard=True`` (RayCastConfig) makes exact zeros agree
 with any sign.
-
-Backends of the JAX package that are not ported yet (``mxu``, ``bvh``,
-``bruteforce`` and the scalar-broadcast tier above 32767 clusters) raise
-``NotImplementedError``; nothing falls back to something else.
 """
 from __future__ import annotations
 
@@ -21,22 +29,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .bvh.clusters import CLUSTER_SIZE, build_mxu_clusters
+from .bvh.clusters import CLUSTER_SIZE, build_clusters, build_mxu_clusters
 from .core import debug
 from .core.config import RayCastConfig
 from .core.device import DeviceLike, as_tensor, resolve_device
+from .geometry import triangle as tri_ops
 from .geometry.triangle import dot3
-from .kernels.raycast_kernel import cast_clusters_mxu, check_stream_cap
+from .kernels.raycast_kernel import (STREAM_MAX_CLUSTERS, cast_clusters,
+                                     cast_clusters_mxu)
+from .mxu_cast import cast_mxu, triangle_matrix
 
 Tensor = torch.Tensor
 
 DEFAULT_MAX_DIST = 10.0
-
-_NOT_PORTED = {
-    "mxu": "ROADMAP.md Queue 1 item 6 (all-pairs mxu_cast)",
-    "bvh": "ROADMAP.md Queue 1 item 6 (LBVH caster)",
-    "bruteforce": "ROADMAP.md Queue 1 item 6 (BruteForceRayCaster)",
-}
 
 
 class RayHits(NamedTuple):
@@ -56,6 +61,65 @@ def _deindex(vertices, faces, device: torch.device) -> Tensor:
     return v[f]
 
 
+def _cast_bruteforce(tris: Tensor, origins: Tensor, dirs: Tensor,
+                     max_dist: float, chunk: int = 512) -> RayHits:
+    """Every ray against every triangle, ``chunk`` triangles at a time.
+
+    Padding triangles are all zero, hence never hit. Within a chunk the
+    first smallest t wins (``torch.argmin``, as ``jnp.argmin``); across
+    chunks a strict ``<``, so earlier chunks win ties.
+    """
+    T = tris.shape[0]
+    R = origins.shape[0]
+    dev = tris.device
+    pad = (-T) % chunk
+    tris_p = torch.cat([tris, tris.new_zeros((pad, 3, 3))]).reshape(
+        -1, chunk, 3, 3)
+    best_t = torch.full((R,), float(max_dist), dtype=torch.float32,
+                        device=dev)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    for k in range(tris_p.shape[0]):
+        t = tri_ops.ray_intersect(origins[:, None, :], dirs[:, None, :],
+                                  tris_p[k][None])  # (R, chunk)
+        i = torch.argmin(t, dim=-1)
+        tmin = torch.gather(t, 1, i[:, None])[:, 0]
+        upd = tmin < best_t
+        best_t = torch.where(upd, tmin, best_t)
+        best_i = torch.where(upd, (k * chunk + i).to(torch.int32), best_i)
+    return RayHits(best_t, _hit_normals(tris, best_i), best_i)
+
+
+def _hit_normals(tris: Tensor, idx: Tensor) -> Tensor:
+    """Unit normals of ``tris[idx]`` (R, 3); zero where idx < 0 (a miss)."""
+    n = tri_ops.normals(tris[idx.clamp(min=0).to(torch.int64)])
+    return torch.where((idx >= 0)[:, None], n, torch.zeros_like(n))
+
+
+def _finish_data(triangles: Tensor) -> Tensor:
+    """Per-face finish rows (T, 5): [n, a.n, 1/|n|], built once per caster
+    so the per-ray finish gathers 5 floats and computes no cross product."""
+    a = triangles[:, 0]
+    n = torch.linalg.cross(triangles[:, 1] - a, triangles[:, 2] - a, dim=-1)
+    inv = 1.0 / torch.clamp(torch.sqrt(dot3(n, n)), min=1e-30)
+    return torch.cat([n, dot3(a, n)[:, None], inv[:, None]], dim=-1)
+
+
+def _finish_hits(fin: Tensor, prim_order: Tensor, depth_k: Tensor,
+                 sidx: Tensor, o: Tensor, d: Tensor,
+                 max_dist: float) -> RayHits:
+    """The scalar-broadcast kernels' (depth, sorted index) as RayHits.
+
+    Maps the index through ``prim_order`` (a padding slot, -1, is a miss)
+    and recomputes each winner's depth from its plane, t = (a.n - o.n) /
+    d.n, keeping the kernel's depth where the recompute is not a valid hit.
+    """
+    fid = prim_order[sidx.clamp(min=0).to(torch.int64)]
+    hit = (sidx >= 0) & (fid >= 0)
+    face_id = torch.where(hit, fid, -1)
+    return _refined_hits(fin[face_id.clamp(min=0).to(torch.int64)], hit,
+                         face_id, depth_k, o, d, max_dist)
+
+
 def _finish_hits_fin(finr: Tensor, depth_k: Tensor, sidx: Tensor, o: Tensor,
                      d: Tensor, max_dist: float) -> RayHits:
     """Elementwise finish from the kernel-selected fin rows (R, 8).
@@ -68,14 +132,24 @@ def _finish_hits_fin(finr: Tensor, depth_k: Tensor, sidx: Tensor, o: Tensor,
     fid_f = finr[:, 5]
     hit = (sidx >= 0) & (fid_f >= 0.0)
     face_id = torch.where(hit, fid_f.to(torch.int32), -1)
-    nvec = finr[:, :3]
+    return _refined_hits(finr, hit, face_id, depth_k, o, d, max_dist)
+
+
+def _refined_hits(rows: Tensor, hit: Tensor, face_id: Tensor,
+                  depth_k: Tensor, o: Tensor, d: Tensor,
+                  max_dist: float) -> RayHits:
+    """RayHits from each ray's winner row ``rows`` (R, >= 5) = [n, a.n,
+    1/|n|, ...]: the depth is recomputed from the winner's plane, t = (a.n -
+    o.n) / d.n, and the kernel's depth ``depth_k`` stays where that is not
+    a valid hit; misses get max_dist and zero normals."""
+    nvec = rows[:, :3]
     den = dot3(d, nvec)
-    t_exact = (finr[:, 3] - dot3(o, nvec)) / torch.where(
+    t_exact = (rows[:, 3] - dot3(o, nvec)) / torch.where(
         den == 0, torch.full_like(den, 1e-30), den)
     ok = hit & (den != 0) & (t_exact >= 0.0) & (t_exact < max_dist)
     depth = torch.where(ok, t_exact, depth_k)
     depth = torch.where(hit, depth, torch.full_like(depth, max_dist))
-    normals = torch.where(hit[:, None], nvec * finr[:, 4:5],
+    normals = torch.where(hit[:, None], nvec * rows[:, 4:5],
                           torch.zeros_like(nvec))
     return RayHits(depth, normals, face_id)
 
@@ -111,14 +185,32 @@ class RayCaster:
         return o, d
 
 
+class MxuRayCaster(RayCaster):
+    """Every ray against every triangle, one fp32 matrix product per chunk
+    of triangles (``mxu_cast.py``); exact, for small meshes."""
+
+    def __init__(self, vertices, faces, max_dist=DEFAULT_MAX_DIST,
+                 chunk=512, device: DeviceLike = "cuda"):
+        super().__init__(vertices, faces, max_dist, device)
+        self.chunk = int(chunk)
+        self.w = triangle_matrix(self.triangles)
+
+    def cast(self, origins, directions) -> RayHits:
+        o, d = self._rays(origins, directions)
+        depth, idx = cast_mxu(self.w, o, d, self.max_dist, self.chunk)
+        return RayHits(depth, _hit_normals(self.triangles, idx), idx)
+
+
 class ClusterRayCaster(RayCaster):
     """Cluster caster on the card's hand-written kernels.
 
     The JAX package's tier rules, unchanged: meshes of at most
     ``mxu_max_tris`` (default ``MXU_MAX_TRIS``) triangles use the resident
-    tier, larger ones the stream tier; the cluster size is 128 up to 500k
-    triangles and 256 above. Past 32767 clusters the JAX package switches to its
-    scalar-broadcast kernel, which is not ported yet.
+    tier, larger ones the stream tier, and meshes of more than
+    ``mxu_stream_max_tris`` (default 32767 clusters) the scalar-broadcast
+    tier (``cast_clusters`` on Morton-order clusters, then the finish from
+    per-face rows). The cluster size is 128 up to 500k triangles and 256
+    above.
     """
 
     # the one default of the resident-tier cap: RayCastConfig and
@@ -138,23 +230,45 @@ class ClusterRayCaster(RayCaster):
                   <= self.AUTO_FAT_CLUSTER_TRIS else 2 * CLUSTER_SIZE)
         else:
             cs = cluster_size
-        check_stream_cap(self.num_triangles,
-                         32767 * cs if mxu_stream_max_tris is None
-                         else mxu_stream_max_tris)
+        scap = (STREAM_MAX_CLUSTERS * cs if mxu_stream_max_tris is None
+                else mxu_stream_max_tris)
+        self.use_mxu = self.num_triangles <= scap
         self.stream = self.num_triangles > cap
-        self.cbvh = build_mxu_clusters(self.triangles, cluster_size=cs)
+        if self.use_mxu:
+            self.cbvh = build_mxu_clusters(self.triangles, cluster_size=cs)
+        else:
+            self.cbvh = build_clusters(self.triangles, cluster_size=cs)
+            self._fin = _finish_data(self.triangles)
 
     def cast(self, origins, directions) -> RayHits:
         o, d = self._rays(origins, directions)
-        depth, sidx, finr = cast_clusters_mxu(
-            self.cbvh, o, d, max_dist=self.max_dist, stream=self.stream,
-            with_fin=True, edge_wildcard=self.edge_wildcard)
-        return _finish_hits_fin(finr, depth, sidx, o, d, self.max_dist)
+        if self.use_mxu:
+            depth, sidx, finr = cast_clusters_mxu(
+                self.cbvh, o, d, max_dist=self.max_dist, stream=self.stream,
+                with_fin=True, edge_wildcard=self.edge_wildcard)
+            return _finish_hits_fin(finr, depth, sidx, o, d, self.max_dist)
+        depth, sidx = cast_clusters(self.cbvh, o, d, max_dist=self.max_dist)
+        return _finish_hits(self._fin, self.cbvh.prim_order, depth, sidx, o,
+                            d, self.max_dist)
+
+
+class BruteForceRayCaster(RayCaster):
+    """Every ray against every triangle in chunks; the exact oracle."""
+
+    def __init__(self, vertices, faces, max_dist=DEFAULT_MAX_DIST, chunk=512,
+                 device: DeviceLike = "cuda"):
+        super().__init__(vertices, faces, max_dist, device)
+        self.chunk = int(chunk)
+
+    def cast(self, origins, directions) -> RayHits:
+        o, d = self._rays(origins, directions)
+        return _cast_bruteforce(self.triangles, o, d, self.max_dist,
+                                self.chunk)
 
 
 def available_backends() -> tuple:
-    """Backends that run in this package (the others are not ported yet)."""
-    return ("pallas",)
+    """The backends of :func:`create_raycaster`, as in the JAX package."""
+    return ("pallas", "mxu", "bvh", "bruteforce")
 
 
 def create_raycaster(
@@ -167,9 +281,13 @@ def create_raycaster(
 ) -> RayCaster:
     """Build a ray caster.
 
-    ``backend``: "auto" or "pallas" (the name the JAX package gives its
-    cluster kernel) build a :class:`ClusterRayCaster`. ``config`` supplies
-    defaults; explicit arguments override it.
+    ``backend``: "pallas" (the name the JAX package gives its cluster
+    kernels) builds a :class:`ClusterRayCaster`, "mxu" an
+    :class:`MxuRayCaster`, "bruteforce" a :class:`BruteForceRayCaster`,
+    "bvh" a ``BvhRayCaster``. "auto" builds the cluster caster, the fast
+    path on the card (the JAX package's "auto" takes it on a TPU and "mxu"
+    elsewhere). ``config`` supplies defaults; explicit arguments override
+    it.
     """
     cfg = config or RayCastConfig()
     backend = backend or cfg.backend
@@ -183,7 +301,13 @@ def create_raycaster(
             edge_wildcard=cfg.edge_wildcard,
             device=device,
         )
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: {_NOT_PORTED[backend]}")
+    if backend == "mxu":
+        return MxuRayCaster(vertices, faces, max_dist, chunk=cfg.mxu_chunk,
+                            device=device)
+    if backend == "bruteforce":
+        return BruteForceRayCaster(vertices, faces, max_dist, device=device)
+    if backend == "bvh":
+        from .bvh.caster import BvhRayCaster
+
+        return BvhRayCaster(vertices, faces, max_dist, device=device)
     raise ValueError(f"unknown backend: {backend!r}")

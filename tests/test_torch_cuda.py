@@ -5,8 +5,9 @@ machine with a card run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The mask and cast kernels repeat the plain versions' arithmetic in the same
-order with no FMA contraction, so masks and casts are compared exactly. The
+The mask, cast and scalar-broadcast kernels repeat the plain versions'
+arithmetic in the same order with no FMA contraction, so masks and casts
+are compared exactly. The
 plane scatter kernel sums each row in float32 in ray order where its plain
 version sums in float64: it is compared to a relative error of 1e-5, and
 with itself bit for bit.
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 import primitive3d_tpu_torch as p3t
-from primitive3d_tpu_torch.bvh.clusters import build_mxu_clusters
+from primitive3d_tpu_torch.bvh.clusters import (build_clusters,
+                                                build_mxu_clusters)
 from primitive3d_tpu_torch.core.config import RayCastConfig
+from primitive3d_tpu_torch.geometry.triangle import subdivide
 from primitive3d_tpu_torch.kernels import _build
 from primitive3d_tpu_torch.kernels import mc_masks as mk
 from primitive3d_tpu_torch.kernels import raycast_kernel as rk
@@ -184,8 +187,84 @@ def test_training_step_card_equals_cpu(cuda, case, monkeypatch):
                                atol=1e-6 * float(gh.abs().max()))
 
 
+@pytest.mark.parametrize("ordered", [True, False])
+def test_scalar_kernels_match_plain(cuda, ordered):
+    """The bunny subdivided once (106,240 triangles, 830 clusters of 128)
+    under 128x96 rays plus axis-parallel rays from cluster box planes: the
+    kernel equals its plain version bit for bit, and its counts are
+    consistent."""
+    v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0, device=cuda)
+    tris = subdivide(v[f.long()])
+    bvh = build_clusters(tris)
+    cam = camera_rays(128, 96, origin=(0.43, 0.57, -1.5),
+                      look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+    k = torch.arange(1024, device=cuda) % bvh.num_clusters
+    o_ap = torch.stack([bvh.boxes[k, 0], bvh.boxes[k, 4],
+                        torch.full_like(k, -1.0, dtype=torch.float32)], 1)
+    o = torch.cat([torch.from_numpy(cam.origins).to(cuda), o_ap])
+    d = torch.cat([torch.from_numpy(cam.dirs).to(cuda),
+                   torch.tensor([0.0, 0.0, 1.0], device=cuda).expand(1024, 3)])
+    rays = torch.cat([o, d], dim=1).T.contiguous()
+    B = o.shape[0] // rk.RAY_BLOCK
+    counts = torch.zeros((B, 3), dtype=torch.int32, device=cuda)
+    if ordered:
+        order, gb = rk._order_and_bounds(bvh, o, B)
+        kern, args = rk.SCALAR_ORDERED, (order, gb, bvh, rays, 10.0)
+        fn = rk.cluster_scalar_ordered
+    else:
+        order = gb = None
+        kern, args, fn = rk.SCALAR, (bvh, rays, 10.0), rk.cluster_scalar
+    before = kern.launches
+    got = fn(*args, counts=counts)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = rk.cluster_scalar_plain(order, gb, bvh, rays, 10.0, ordered)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0.05 < float((got[1] >= 0).float().mean()) < 0.95
+    G = -(-bvh.num_clusters // rk.GROUP)
+    groups, clusters, tested = counts.long().unbind(1)
+    assert bool(((groups >= 1) & (groups <= G)).all())
+    assert bool((clusters <= groups * rk.GROUP).all())
+    S = bvh.tri_data.shape[1]
+    if ordered:
+        assert bool((tested <= clusters * S).all()) and tested.sum() > 0
+    else:
+        assert bool((groups == G).all()) and torch.equal(tested, clusters * S)
+
+
+@pytest.mark.parametrize("backend", ["pallas-scalar", "mxu", "bruteforce",
+                                     "bvh"])
+def test_backends_card_equals_cpu(cuda, backend):
+    """Each caster on the 32^3 off-centre sphere: card against CPU. The
+    scalar tier and the brute force round every product in written-out
+    order on both, so ids and depth are equal; the all-pairs matrix
+    product sums in another order on the card, so its ids agree on 99.9%
+    and depth to 1e-5; the LBVH build and walk are exact integer and
+    written-out float work."""
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    cfg = RayCastConfig(mxu_stream_max_tris=0)
+    outs = []
+    for device in ("cuda", "cpu"):
+        v, f = p3t.marching_cubes(_sphere(), 0.0, scale=(-1.0, 1.0),
+                                  device=device)
+        rc = p3t.create_raycaster(v, f, backend=backend.split("-")[0],
+                                  config=cfg, device=device)
+        outs.append([t.cpu() for t in rc.cast(cam.origins, cam.dirs)])
+    (dc, nc, ic), (dh, nh, ih) = outs
+    assert 0.1 < float((ih >= 0).float().mean()) < 0.9
+    if backend == "mxu":
+        same = ic == ih
+        assert float(same.float().mean()) >= 0.999
+        assert torch.allclose(dc[same], dh[same], rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(ic, ih)
+        assert torch.allclose(dc, dh, rtol=1e-6, atol=1e-6)
+        assert torch.allclose(nc, nh, rtol=0, atol=1e-6)
+
+
 def test_build_all_sources(cuda):
     logs = _build.build()
-    assert set(_build.sources()) == {"cluster_cast.cu", "mc_masks.cu",
-                                     "plane_scatter.cu"}
+    assert set(_build.sources()) == {"cluster_cast.cu", "cluster_scalar.cu",
+                                     "mc_masks.cu", "plane_scatter.cu"}
     assert all(isinstance(text, str) for text in logs.values())

@@ -384,20 +384,40 @@ def test_gradient_step_decreases_loss():
     assert losses[-1] < losses[0]
 
 
-def test_render_depth_limits_and_device():
-    """Above 32767 clusters of 128 the pallas path raises before extracting;
+def test_render_depth_limits_and_device(monkeypatch):
+    """Past the stream tier's cluster cap the pallas path takes the
+    scalar-broadcast tier (here with the cap lowered to 8 clusters of 128,
+    so no 4M-face soup is needed) and renders what the stream tier renders;
     an unknown backend raises; every input goes to ``device``, the card by
     default, a tensor too; the gradient reaches a tensor input across the
     move (here a float64 leaf)."""
     g = sphere_density(8)
     o, d = front_rays(8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p3t.render_depth(g, o, d, vert_capacity=64,
-                         face_capacity=32767 * 128 + 1, backend="pallas",
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="scalar-broadcast"):
-        rk.cast_clusters_diff(torch.zeros((4, 3, 3)), torch.zeros((2, 3)),
-                              torch.ones((2, 3)), mxu_stream_max_tris=3)
+    calls = []
+    cast_clusters = rk.cast_clusters
+
+    def recording(*args, **kw):
+        calls.append(args[0].tri_data.shape)
+        return cast_clusters(*args, **kw)
+
+    monkeypatch.setattr(rk, "cast_clusters", recording)
+    kw = dict(vert_capacity=1024, face_capacity=2048, max_dist=100.0)
+    g16, o16, d16 = sphere_density(), *front_rays()
+    want = p3t.render_depth(g16, o16, d16, backend="pallas", device="cpu",
+                            **kw)
+    assert not calls
+    monkeypatch.setattr(rk, "STREAM_MAX_CLUSTERS", 8)
+    got = p3t.render_depth(g16, o16, d16, backend="pallas", device="cpu",
+                           **kw)
+    assert calls == [(2048 // 128, 128, 9)]
+    assert torch.equal(got.hit, want.hit) and got.hit.any()
+    torch.testing.assert_close(got.depth, want.depth, rtol=1e-6, atol=1e-6)
+    depth, prim = rk.cast_clusters_diff(torch.zeros((4, 3, 3)),
+                                        torch.zeros((2, 3)),
+                                        torch.ones((2, 3)),
+                                        mxu_stream_max_tris=3)
+    assert len(calls) == 2 and prim.tolist() == [-1, -1]
+    assert depth.tolist() == [10.0, 10.0]
     with pytest.raises(ValueError, match="backend"):
         p3t.render_depth(g, o, d, vert_capacity=64, face_capacity=64,
                          backend="optix", device="cpu")

@@ -249,15 +249,20 @@ def test_plain_cast_is_the_cpu_path():
 
 
 def test_not_ported_backends_raise():
+    """Nothing the JAX package accepts is refused any longer: the factory
+    offers the JAX package's four backends and raises on an unknown one,
+    and past the stream cap (here ``mxu_stream_max_tris=0``) the cluster
+    caster takes the scalar-broadcast tier instead of raising."""
     v, f = np.eye(3, dtype=np.float32), np.array([[0, 1, 2]])
-    for backend in ("mxu", "bvh", "bruteforce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            p3t.create_raycaster(v, f, backend=backend, device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown backend"):
         p3t.create_raycaster(v, f, backend="optix", device="cpu")
-    with pytest.raises(NotImplementedError, match="scalar-broadcast"):
-        ClusterRayCaster(v, f, mxu_stream_max_tris=0, device="cpu")
-    assert p3t.available_backends() == ("pallas",)
+    assert p3t.available_backends() == p3d.available_backends() == (
+        "pallas", "mxu", "bvh", "bruteforce")
+    rc = ClusterRayCaster(v, f, mxu_stream_max_tris=0, device="cpu")
+    assert not rc.use_mxu and rc.cbvh.tri_data.shape == (1, 128, 9)
+    hits = rc.cast(np.array([[0.2, 0.2, 1.0]], np.float32),
+                   np.array([[0.0, 0.0, -1.0]], np.float32))
+    assert hits.face_id.tolist() == [0]
     assert isinstance(p3t.create_raycaster(v, f, device="cpu"),
                       ClusterRayCaster)
 
