@@ -19,14 +19,14 @@ kernel launch counts set to 0 just before it and read just after:
     (``sdf_fitting_loss(..., backend="pallas")`` then ``backward()``) at the
     configuration of FLAGSHIP_r5.json and tools/flagship_probe.py: the
     256^3 sphere, a 425,984-face soup, 1088x1920 rays, target depth 1.7;
-  * the large-mesh path, the scalar-broadcast cluster tier: the card's
-    bunny mesh subdivided 5 times by edge midpoints (tools/stream_sweep.py)
-    into 27,197,440 triangles, which ``create_raycaster(...,
-    backend="pallas")`` casts in the scalar-broadcast tier by its size
-    alone (106,240 clusters of 256, past the stream tier's 32,767), cast
-    under the bunny's 512x512 camera; then ``cast_clusters(...,
-    ordered=False)`` and ``cast_clusters_diff`` (forward and backward) on
-    the same mesh and rays.
+  * the large-mesh path, the scalar cluster tier: the card's bunny mesh
+    subdivided 5 times by edge midpoints (tools/stream_sweep.py) into
+    27,197,440 triangles, which ``create_raycaster(..., backend="pallas")``
+    casts in the scalar tier by its size alone (106,240 clusters of 256,
+    past the stream tier's 32,767, under a 32-wide box tree that one warp
+    per ray walks), cast under the bunny's 512x512 camera; then
+    ``cast_clusters(..., ordered=False)`` and ``cast_clusters_diff``
+    (forward and backward) on the same mesh and rays.
 
 It checks the outputs (exact counts, card against CPU, the flagship step's
 depth against the analytic sphere and its loss and gradient norm against
@@ -41,9 +41,9 @@ events, and prints:
   * a ``stages`` JSON line: the paths' stage times;
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
     error against its plain version, its time, the plain version's time
-    (for the scalar-broadcast kernels on ``plain_blocks`` of the frame's
-    ray blocks), its lower bound on this card and the time of one PyTorch
-    call that computes the same function, where there is one;
+    (for the scalar kernels on all ``plain_rays`` of the large frame), its
+    lower bound on this card and the time of one PyTorch call that computes
+    the same function, where there is one;
   * the card's name and power limit (nvidia-smi);
   * last, ``{"ok": true, "device": {...}}``.
 
@@ -81,7 +81,7 @@ LARGE_KERNELS = ("mc_masks", "cluster_scalar_ordered", "cluster_scalar")
 # 4p + k, so face_id // 4**LEVELS is the bunny face a hit lies on
 LEVELS = 5
 LARGE_TRIS = BUNNY_COUNTS[1] * 4 ** LEVELS
-# fp32 operations per test of the scalar-broadcast kernels: a slab test is
+# fp32 operations per test of the scalar kernels: a slab test is
 # 6 sub + 6 mul + 6 pairwise min/max + 4 to combine them + 3 compares; a
 # Möller-Trumbore test 27 mul + 18 add/sub + 1 division (its 8 compares
 # not counted)
@@ -287,6 +287,7 @@ def main() -> int:
     from primitive3d_tpu_torch import (create_raycaster, marching_cubes,
                                        marching_cubes_soup, render_depth,
                                        sdf_fitting_loss)
+    from primitive3d_tpu_torch.bvh.clusters import build_cluster_tree
     from primitive3d_tpu_torch.core.config import RayCastConfig
     from primitive3d_tpu_torch.geometry.triangle import subdivide
     from primitive3d_tpu_torch.kernels import _build
@@ -782,52 +783,28 @@ def main() -> int:
         f"{lms:.4f} ms); {C4} clusters x {B4} blocks, {hit_rays} rays with "
         f"a winner, bound {sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
-    # the scalar-broadcast kernels on the large path's inputs: the whole
-    # frame on the card, then a set of ray blocks against the plain version:
-    # a silhouette pair (hits and misses), the block whose ordered walk
-    # exits earliest, and the last block (the second wave over the SMs)
-    bvh_l = rc_l.cbvh
+    # the scalar-tier kernels on the large path's inputs: the whole frame on
+    # the card, each kernel held bit for bit against the plain version on
+    # every ray of the frame
+    bvh_l, tree_l = rc_l.cbvh, rc_l.tree
     R_b = o_b.shape[0]
-    pad = (-R_b) % rk.RAY_BLOCK
-    op = torch.cat([o_b, torch.zeros((pad, 3), device=dev)])
-    dp = torch.cat([d_b, torch.ones((pad, 3), device=dev)])
-    B_l = op.shape[0] // rk.RAY_BLOCK
-    rays_l = torch.cat([op, dp], dim=1).T.contiguous()
-
-    def prep_l():
-        return rk._order_and_bounds(bvh_l, op, B_l)
-
-    order_l, gb_l = prep_l()
+    rays_l = torch.cat([o_b, d_b], dim=1).T.contiguous()
     nsub = S_l // rk.SUB_SIZE
-    G_l = -(-C_l // rk.GROUP)
+    log(f"large mesh tree: {' -> '.join(str(n) for n in tree_l.sizes)} "
+        f"nodes per level, {nbytes(tree_l.nodes)} bytes")
     scalar = {}
     for kern, ordered in ((rk.SCALAR_ORDERED, True), (rk.SCALAR, False)):
-        counts = torch.zeros((B_l, 3), dtype=torch.int32, device=dev)
-        head = (order_l, gb_l) if ordered else ()
         fn = rk.cluster_scalar_ordered if ordered else rk.cluster_scalar
-        args = head + (bvh_l, rays_l, rc_l.max_dist)
-        dk, ik = fn(*args, counts=counts)
-        ms = event_ms(lambda: fn(*args), iters=5 if ordered else 3,
-                      warmup=1)
+        counts = torch.zeros((R_b, 4), dtype=torch.int32, device=dev)
+        dk, ik = fn(tree_l, bvh_l, rays_l, rc_l.max_dist, counts=counts)
+        ms = event_ms(lambda: fn(tree_l, bvh_l, rays_l, rc_l.max_dist),
+                      iters=10, warmup=2)
         scalar[ordered] = (dk, ik, ms, counts.to(torch.int64))
-    walked = scalar[True][3][:, 0]
-    hit_blk = (scalar[True][1] >= 0).float().view(B_l, -1).mean(dim=1)
-    sil = ((hit_blk > 0.1) & (hit_blk < 0.9)).tolist()
-    k0 = next(k for k in range(B_l - 1) if sil[k] and sil[k + 1])
-    k_exit = int(walked.argmin())
-    check(int(walked[k_exit]) < G_l,
-          "no ray block of the large frame exits its walk early")
-    blocks = sorted({k0, k0 + 1, k_exit, B_l - 1})
-    bsel = torch.tensor(blocks, device=dev)
-    rays_run = rays_l.view(6, B_l, rk.RAY_BLOCK)[:, bsel].reshape(6, -1)
-    log(f"scalar kernels against their plain version on ray blocks {blocks} "
-        f"of {B_l}: hit shares "
-        f"{[round(float(hit_blk[k]), 3) for k in blocks]}, ordered groups "
-        f"walked {[int(walked[k]) for k in blocks]} of {G_l}")
 
     # one bound for both rows, the same function: the work that the frame's
-    # result says any walk of this tree must do, counted per ray
-    dk_o, ik_o = scalar[True][0][:R_b], scalar[True][1][:R_b]
+    # result says any walk of the cluster boxes and sub-boxes must do,
+    # counted per ray
+    dk_o, ik_o = scalar[True][0], scalar[True][1]
     slabs_n, tris_n, boxes_n, subs_n = needed_work(
         rk, bvh_l, o_b, d_b, dk_o, ik_o >= 0, rc_l.max_dist)
     ops_n = slabs_n * SLAB_OPS + tris_n * TRI_OPS
@@ -842,49 +819,55 @@ def main() -> int:
         f"operations, {boxes_n} cluster boxes and {subs_n} sub-boxes entered "
         f"by some ray, {bytes_n} bytes; bound {bound_l:.4f} ms (operations "
         f"{t_ops:.4f}, bytes {t_bytes:.4f})")
+    hit_o = ik_o >= 0
     for kern, ordered in ((rk.SCALAR_ORDERED, True), (rk.SCALAR, False)):
         dk, ik, ms, c64 = scalar[ordered]
+        full = torch.zeros((R_b, 4), dtype=torch.int32, device=dev)
         ta = torch.cuda.Event(enable_timing=True)
         tb = torch.cuda.Event(enable_timing=True)
         ta.record()
-        dpl, ipl = rk.cluster_scalar_plain(
-            order_l[bsel] if ordered else None,
-            gb_l[bsel] if ordered else None, bvh_l, rays_run, rc_l.max_dist,
-            ordered=ordered)
+        dpl, ipl = rk.cluster_scalar_plain(tree_l, bvh_l, rays_l,
+                                           rc_l.max_dist, ordered, full)
         tb.record()
         torch.cuda.synchronize()
         pms = ta.elapsed_time(tb)
-        dsel = dk.view(B_l, -1)[bsel].reshape(-1)
-        isel = ik.view(B_l, -1)[bsel].reshape(-1)
-        check(torch.equal(dsel, dpl) and torch.equal(isel, ipl),
-              f"{kern.name}: differs from its plain version on ray blocks "
-              f"{blocks}")
-        err = float((dsel - dpl).abs().max())
-        groups, flagged, tested = (int(x) for x in c64.sum(dim=0))
-        # the kernel's own walk, for each of a block's ray lanes: every
-        # cluster of each walked group (the last group holds C - 32 (G - 1)),
-        # the sub-boxes of each flagged cluster, the triangles tested
-        full = c64[:, 0] == G_l
-        slabs = int((c64[:, 0] * rk.GROUP - full * (G_l * rk.GROUP - C_l)
-                     ).sum()) + (flagged * nsub if ordered else 0)
+        d_eq = dk.view(torch.int32) == dpl.view(torch.int32)
+        i_eq = ik == ipl
+        log(f"{kern.name}: {R_b} rays compared with the plain version, depth "
+            f"bit-equal on {int(d_eq.sum())}, ids on {int(i_eq.sum())}")
+        check(bool(d_eq.all()) and bool(i_eq.all()),
+              f"{kern.name}: differs from its plain version on "
+              f"{int((~(d_eq & i_eq)).sum())} rays")
+        err = float((dk - dpl).abs().max())
+        f64 = full.to(torch.int64)
+        check(bool((c64 <= f64).all()),
+              f"{kern.name}: walks more than the walk without pruning")
+        nodes, boxes, subs, tris = (int(x) for x in c64.sum(dim=0))
+        slabs = boxes + subs
+        per = {name: [float(x) for x in c64[sel].double().mean(dim=0)]
+               for name, sel in (("hit", hit_o), ("missing", ~hit_o))}
+        fslabs = int(f64[:, 1].sum() + f64[:, 2].sum())
         kernels.append(dict(
             name=kern.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/cluster_scalar.cu",
             replaces=kern.replaces, launches=launches[kern.name],
-            max_abs_err=err, ms=ms, plain_ms=pms, plain_blocks=len(blocks),
+            max_abs_err=err, ms=ms, plain_ms=pms, plain_rays=R_b,
             bound_ms=bound_l,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
-        log(f"{kern.name} (large mesh, {B_l} blocks, {C_l} clusters of "
-            f"{S_l}): equals its plain version bit for bit on blocks "
-            f"{blocks}; {ms:.3f} ms (plain, {len(blocks)} blocks, "
-            f"{pms:.1f} ms); walk: {groups} groups of {B_l * G_l} "
-            f"({groups / B_l:.1f} per block), {flagged} clusters flagged, "
-            f"{slabs} slab and {tested} triangle tests per ray lane, so "
-            f"{slabs * rk.RAY_BLOCK / slabs_n:.1f}x the needed slab tests and "
-            f"{tested * rk.RAY_BLOCK / tris_n:.1f}x the needed triangle "
-            f"tests; {ms / bound_l:.1f}x the bound")
-    (dk_o, ik_o, ms_o, _), (dk_u, ik_u, _, _) = scalar[True], scalar[False]
+        log(f"{kern.name} (large mesh, {R_b} rays, {C_l} clusters of "
+            f"{S_l}): equals its plain version bit for bit on all {R_b} "
+            f"rays; {ms:.3f} ms (plain, whole frame, {pms:.1f} ms); walk: "
+            f"{nodes} nodes entered, {boxes} child box, {subs} sub-box and "
+            f"{tris} triangle tests; per hit ray [nodes, boxes, sub-boxes, "
+            f"triangles] {[round(x, 2) for x in per['hit']]}, per missing "
+            f"ray {[round(x, 2) for x in per['missing']]}; "
+            f"{slabs / slabs_n:.2f}x the needed slab tests and "
+            f"{tris / tris_n:.2f}x the needed triangle tests (the walk "
+            f"without pruning: {fslabs / slabs_n:.2f}x and "
+            f"{int(f64[:, 3].sum()) / tris_n:.2f}x); {ms / bound_l:.1f}x the "
+            f"bound")
+    (dk_o, ik_o, ms_o, _), (dk_u, ik_u, ms_u, _) = scalar[True], scalar[False]
 
     # the rays on which the large frame disagrees with a level-0 yardstick:
     # the 27M mesh itself brute-forced on them, every triangle row in sorted
@@ -892,8 +875,13 @@ def main() -> int:
     lvl = fid_l // 4 ** LEVELS
     disputed = ((lvl != fid_0) | (lvl != hits_bf.face_id)).nonzero()[:, 0]
     tri_flat = bvh_l.tri_data.view(-1, 9)
-    o_x, d_x = o_b[disputed], d_b[disputed]
-    bt, bi = brute_force_sorted(rk, tri_flat, o_x, d_x, rc_l.max_dist)
+
+    def brute(rays_x):
+        o_x, d_x = o_b[rays_x], d_b[rays_x]
+        bt, bi = brute_force_sorted(rk, tri_flat, o_x, d_x, rc_l.max_dist)
+        return o_x, d_x, bt, bi
+
+    o_x, d_x, bt, bi = brute(disputed)
     kd, ki = dk_o[disputed], ik_o[disputed].to(torch.int64)
     kt = rk._triangle_t(tri_flat[ki.clamp(min=0)][:, None],
                         [o_x[:, q].reshape(-1, 1, 1) for q in range(3)],
@@ -912,30 +900,50 @@ def main() -> int:
           and same_id + ties == disputed.shape[0],
           "large mesh: the frame differs from the brute force of the 27M "
           "mesh on the disputed rays")
-    del tri_flat, bt, bi, kd, ki, kt
-    uo_err = float((dk_u - dk_o).abs().max())
-    uo_same = float((ik_u == ik_o).float().mean())
-    log(f"unordered vs ordered kernel, whole frame: depth max difference "
-        f"{uo_err:.3g}, ids equal on {uo_same:.6f}; the path's "
-        f"cast_clusters(ordered=False) equals the kernel: "
-        f"{torch.equal(t_u, dk_u[:R_b]) and torch.equal(i_u, ik_u[:R_b])}")
-    check(uo_err <= 1e-6 and uo_same >= 0.99,
-          "the unordered kernel disagrees with the ordered one")
-    check(torch.equal(t_u, dk_u[:R_b]) and torch.equal(i_u, ik_u[:R_b]),
+    # the two kernels compute one function but for the sub-box cull: every
+    # ray where they differ must be one where the unordered kernel's result
+    # is the brute force's and the ordered kernel's sub-box cull dropped it
+    uo = ((dk_u.view(torch.int32) != dk_o.view(torch.int32))
+          | (ik_u != ik_o)).nonzero()[:, 0]
+    settled = True
+    if uo.numel():
+        _, _, bt, bi = brute(uo)
+        settled = (torch.equal(dk_u[uo], bt)
+                   and torch.equal(ik_u[uo].to(torch.int64), bi)
+                   and bool((dk_o[uo] >= bt).all()))
+        for j, q in enumerate(uo[:20].tolist()):
+            log(f"  ray {q}: ordered ({float(dk_o[q])!r}, {int(ik_o[q])}), "
+                f"unordered ({float(dk_u[q])!r}, {int(ik_u[q])}), brute "
+                f"force ({float(bt[j])!r}, {int(bi[j])})")
+    log(f"unordered vs ordered kernel, whole frame: bit-equal in depth and "
+        f"id on {R_b - uo.shape[0]} of {R_b} rays; the {uo.shape[0]} others "
+        f"settled by the brute force in the unordered kernel's favour: "
+        f"{settled}; the path's cast_clusters(ordered=False) equals the "
+        f"kernel: {torch.equal(t_u, dk_u) and torch.equal(i_u, ik_u)}")
+    check(settled, "the unordered kernel disagrees with the ordered one "
+          "beyond the sub-box cull")
+    check(torch.equal(t_u, dk_u) and torch.equal(i_u, ik_u),
           "cast_clusters(ordered=False) differs from its kernel")
+    del tri_flat, bt, bi, kd, ki, kt
 
-    # the large path's stage times
+    # the large path's stages: the caster's build (clusters and tree), the
+    # tree alone, the kernel, and the rest of the cast (ray rows and the
+    # finish); no per-block order and bounds on this path any more
     t_build = event_ms(lambda: create_raycaster(v_l, f_l, backend="pallas"),
                        iters=2, warmup=0)
-    t_prep = event_ms(prep_l, iters=3, warmup=1)
-    t_cast = event_ms(lambda: rc_l.cast(o_b, d_b), iters=3, warmup=1)
-    stage["large"] = dict(build_ms=t_build, prep_ms=t_prep, kernel_ms=ms_o,
-                          cast_ms=t_cast, mrays_per_s=R_b / (t_cast * 1e3),
-                          rays=R_b, triangles=LARGE_TRIS)
-    log(f"path large mesh: cluster build {t_build:.3f} ms, order and bounds "
-        f"{t_prep:.3f} ms, kernel {ms_o:.3f} ms, cast {t_cast:.3f} ms = "
-        f"{R_b / (t_cast * 1e3):.3f} Mrays/s")
-    del v_l, f_l, rc_l, bvh_l, order_l, scalar, dk_o, dk_u, ik_o, ik_u
+    t_tree = event_ms(lambda: build_cluster_tree(bvh_l.boxes), iters=10)
+    t_cast = event_ms(lambda: rc_l.cast(o_b, d_b), iters=10, warmup=2)
+    stage["large"] = dict(build_ms=t_build, tree_ms=t_tree, kernel_ms=ms_o,
+                          finish_ms=t_cast - ms_o, cast_ms=t_cast,
+                          unordered_kernel_ms=ms_u,
+                          mrays_per_s=R_b / (t_cast * 1e3), rays=R_b,
+                          triangles=LARGE_TRIS)
+    log(f"path large mesh: cluster build {t_build:.3f} ms (the tree "
+        f"included: {t_tree:.3f} ms), kernel {ms_o:.3f} ms, finish "
+        f"{t_cast - ms_o:.3f} ms, cast {t_cast:.3f} ms = "
+        f"{R_b / (t_cast * 1e3):.3f} Mrays/s (no order-and-bounds stage: "
+        f"the walk needs none)")
+    del v_l, f_l, rc_l, bvh_l, tree_l, scalar, dk_o, dk_u, ik_o, ik_u
 
     # the other backends on the bunny against the cluster caster
     for backend in ("mxu", "bruteforce", "bvh"):

@@ -7,10 +7,15 @@ input-order) triangles grouped into fixed-size clusters, each with an AABB.
 finish rows, with the Plücker data in f32 in a layout chosen for the CUDA
 kernel (``csrc/cluster_cast.cu``). The JAX package splits it into bf16
 hi/lo halves for the TPU's matrix unit; the card needs no split.
+
+``ClusterTree`` is a box tree over a ``ClusterBVH``'s clusters, 32
+children to a node, which the scalar-tier kernels
+(``csrc/cluster_scalar.cu``) walk one warp per ray. The JAX package has no
+counterpart: its kernels walk the clusters in lock-step per block of rays.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ Tensor = torch.Tensor
 CLUSTER_SIZE = 128
 SUB_SIZE = 8  # triangles per sub-box (second culling level)
 WROW = 24  # floats per triangle row of MxuClusterBVH.w (22 used + 2 pad)
+TREE_WIDTH = 32  # children per node of ClusterTree: one per lane of a warp
 
 
 class ClusterBVH(NamedTuple):
@@ -79,6 +85,67 @@ def build_clusters(tris: Tensor, cluster_size: int = CLUSTER_SIZE,
     a = tc[:, :, 0]
     tri_data = torch.cat([a, tc[:, :, 1] - a, tc[:, :, 2] - a], dim=-1)
     return ClusterBVH(boxes, sub_boxes, tri_data, prim)
+
+
+class ClusterTree(NamedTuple):
+    """An implicit TREE_WIDTH-wide box tree over a ``ClusterBVH``'s clusters
+    in their index order: the scalar-tier kernels' walk
+    (``csrc/cluster_scalar.cu``).
+
+    Level 0 is the clusters; node i of level k + 1 holds nodes
+    TREE_WIDTH i .. TREE_WIDTH i + TREE_WIDTH - 1 of level k, up to a
+    single root. ``nodes[g]`` holds the child boxes of internal node g
+    (level 1 first, the root last) in one row of TREE_WIDTH floats per
+    bound, lo x, lo y, lo z, hi x, hi y, hi z, so that a warp's lanes load
+    one child each; the slots past a ragged last node's children are boxes
+    at +inf, which no slab test passes.
+    """
+
+    nodes: Tensor  # (N, 6, TREE_WIDTH) float32 child boxes, SoA
+    sizes: Tuple[int, ...]  # nodes per level: C, ..., 1
+
+    def offsets(self) -> Tuple[int, ...]:
+        """First row of ``nodes`` of each level (level 0 has none: -1)."""
+        off, n = [-1], 0
+        for size in self.sizes[1:]:
+            off.append(n)
+            n += size
+        return tuple(off)
+
+
+def tree_sizes(C: int) -> Tuple[int, ...]:
+    """Nodes per level of the :class:`ClusterTree` over C >= 1 clusters: C,
+    then ceil(n / TREE_WIDTH) per level, one level above the clusters at
+    least, up to a single root."""
+    sizes = [C]
+    while len(sizes) == 1 or sizes[-1] > 1:
+        sizes.append(-(-sizes[-1] // TREE_WIDTH))
+    return tuple(sizes)
+
+
+def build_cluster_tree(boxes: Tensor) -> ClusterTree:
+    """The :class:`ClusterTree` over cluster boxes (C, 6), C >= 1.
+
+    A parent box is the exact ``amin`` / ``amax`` of its children's, so its
+    slab interval contains each child's in float too: a walk from the root
+    keeps every cluster that a flat cull of the cluster boxes keeps.
+    """
+    if boxes.shape[0] == 0:
+        raise ValueError("cannot build a tree over no clusters")
+    sizes = tree_sizes(boxes.shape[0])
+    inf = torch.tensor(float("inf"), dtype=boxes.dtype, device=boxes.device)
+    level, blocks = boxes, []
+    for n, m in zip(sizes[:-1], sizes[1:]):
+        kids = torch.cat([level, inf.expand(m * TREE_WIDTH - n, 6)])
+        kids = kids.view(m, TREE_WIDTH, 6)
+        blocks.append(kids.transpose(1, 2))
+        # the +inf slots leave amin alone; hi takes amax of the real ones
+        real = (torch.arange(m * TREE_WIDTH, device=boxes.device)
+                < n).view(m, TREE_WIDTH, 1)
+        level = torch.cat([kids[..., :3].amin(dim=1),
+                           torch.where(real, kids[..., 3:], -inf)
+                           .amax(dim=1)], dim=-1)
+    return ClusterTree(torch.cat(blocks).contiguous(), sizes)
 
 
 class MxuClusterBVH(NamedTuple):

@@ -21,11 +21,12 @@ its kernel for CUDA tensors and runs ``cluster_cast_plain`` for CPU
 tensors; there is no fallback between the two.
 
 Past STREAM_MAX_CLUSTERS clusters (the stream word's 15-bit cluster id)
-the casters take the scalar-broadcast tier, ``cast_clusters`` (the JAX
-function of that name): rays in blocks of RAY_BLOCK = 1024, each walking
-the clusters in groups of GROUP = 32, ordered front to back per block by
-``_order_and_bounds`` with an early exit, or in index order. Its kernels
-are ``cluster_scalar_ordered`` and ``cluster_scalar``
+the casters take the scalar tier, ``cast_clusters`` (the JAX function of
+that name). The JAX kernels walk the clusters in lock-step for blocks of
+1,024 rays; here one warp per ray walks a 32-wide box tree over the
+clusters (``bvh.clusters.ClusterTree``), nearest child first with a
+second cull over sub-boxes of 8 triangles, or in index order without it.
+Its kernels are ``cluster_scalar_ordered`` and ``cluster_scalar``
 (``csrc/cluster_scalar.cu``), with the plain version
 ``cluster_scalar_plain``.
 
@@ -42,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..bvh.clusters import SUB_SIZE
+from ..bvh.clusters import (SUB_SIZE, TREE_WIDTH, build_cluster_tree,
+                            tree_sizes)
 from ..geometry.triangle import dot3
 from . import _build
 
@@ -411,23 +413,27 @@ def cast_clusters_mxu(bvh, origins: Tensor, dirs: Tensor,
     return (depth, idx, finr) if with_fin else (depth, idx)
 
 
-# --- scalar-broadcast tier: meshes past STREAM_MAX_CLUSTERS clusters ---------
+# --- scalar tier: meshes past STREAM_MAX_CLUSTERS clusters -------------------
 
-RAY_BLOCK = 1024  # rays per block of the scalar-broadcast kernels
-GROUP = 32  # clusters per cull group
-_SCALAR_CULL_ELEMS = 1 << 22  # (block, cluster, ray) cells per cull pass
+# the JAX kernels' walk: rays in blocks of RAY_BLOCK, clusters in groups of
+# GROUP, ordered per block by _order_and_bounds
+RAY_BLOCK = 1024
+GROUP = 32
+_SCALAR_CELLS = 1 << 22  # (pair, box) or (pair, triangle) cells per pass
+_INT32_MAX = torch.iinfo(torch.int32).max
 
-_SCALAR_ARGS = [ctypes.c_void_p] * 3 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float] + [ctypes.c_void_p] * 3
+# [tri, rays, R, C, S, max_dist, depth, idx, counts]
+_SCALAR_ARGS = [ctypes.c_void_p] * 2 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+    ctypes.c_void_p] * 3
 SCALAR_ORDERED = _build.Kernel(
     "cluster_scalar_ordered", "cluster_scalar.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:45",
-    argtypes=[ctypes.c_void_p] * 3 + _SCALAR_ARGS)
+    argtypes=[ctypes.c_void_p] * 2 + _SCALAR_ARGS)
 SCALAR = _build.Kernel(
     "cluster_scalar", "cluster_scalar.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:219",
-    argtypes=_SCALAR_ARGS)
+    argtypes=[ctypes.c_void_p] + _SCALAR_ARGS)
 
 
 def _block_mean(x: Tensor) -> Tensor:
@@ -442,7 +448,9 @@ def _block_mean(x: Tensor) -> Tensor:
 
 def _order_and_bounds(bvh, o: Tensor, B: int) -> Tuple[Tensor, Tensor]:
     """Per-ray-block front-to-back cluster order (B, C) int32 and the entry
-    bound of each group of GROUP (B, G) float32.
+    bound of each group of GROUP (B, G) float32: the prep of the JAX
+    kernels' block walk, kept with its parity test. No path of the port
+    calls it: its kernels walk a :class:`ClusterTree` per ray.
 
     A unit-direction ray travels at least the point-box distance from its
     block's mean origin, less the block's origin spread, before it enters a
@@ -467,25 +475,38 @@ def _order_and_bounds(bvh, o: Tensor, B: int) -> Tuple[Tensor, Tensor]:
     return order.to(torch.int32).contiguous(), sb[:, ::GROUP].contiguous()
 
 
+def _slab(lo, hi, o, inv) -> Tuple[Tensor, Tensor]:
+    """Slab test of boxes against rays, all broadcast together: ``lo``,
+    ``hi``, ``o`` and ``inv`` (1 / d) are lists of the three axes' tensors.
+    Returns (entry t, the ray meets the box ahead of its origin). The
+    arithmetic of csrc/cluster_scalar.cu. A NaN is 0 * inf: a ray parallel
+    to an axis whose origin lies on one of the box's planes there, inside
+    the closed slab for every t."""
+    tmin = tmax = None
+    for a in range(3):
+        t0 = (lo[a] - o[a]) * inv[a]
+        t1 = (hi[a] - o[a]) * inv[a]
+        on = torch.isnan(t0) | torch.isnan(t1)
+        near = torch.where(on, -float("inf"), torch.minimum(t0, t1))
+        far = torch.where(on, float("inf"), torch.maximum(t0, t1))
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    return tmin, (tmin <= tmax) & (tmax >= 0.0)
+
+
 def _slab_useful(bx: Tensor, o, inv, best: Tensor) -> Tensor:
-    """Slab test of boxes ``bx`` (n, k, 6) against the rays of n blocks:
-    ``o``/``inv`` three (n, 1, RAY_BLOCK) rows each, ``best`` (n, 1,
-    RAY_BLOCK) -> (n, k, RAY_BLOCK) bool. The arithmetic of
-    csrc/cluster_scalar.cu; min and max propagate NaN, so an axis-parallel
-    ray whose origin lies on a box plane (0 * inf) culls the box."""
-    t0 = [(bx[..., a, None] - o[a]) * inv[a] for a in range(3)]
-    t1 = [(bx[..., a + 3, None] - o[a]) * inv[a] for a in range(3)]
-    lo = [torch.minimum(x, y) for x, y in zip(t0, t1)]
-    hi = [torch.maximum(x, y) for x, y in zip(t0, t1)]
-    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
-    tmax = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-    return (tmin <= tmax) & (tmax >= 0.0) & (tmin < best)
+    """Slab test of boxes ``bx`` (n, k, 6) against rays, ``o``/``inv``
+    three (n, 1, r) rows each: does each ray enter each box at t < ``best``
+    (n, 1, r)? -> (n, k, r) bool."""
+    tmin, ok = _slab([bx[..., a, None] for a in range(3)],
+                     [bx[..., a + 3, None] for a in range(3)], o, inv)
+    return ok & (tmin < best)
 
 
 def _triangle_t(tri: Tensor, o, d) -> Tensor:
-    """Möller-Trumbore t of the rays of n blocks (``o``/``d`` three (n, 1,
-    RAY_BLOCK) rows each) against triangle rows ``tri`` (n, k, 9) = [a, e1,
-    e2] -> (n, k, RAY_BLOCK), inf where the test fails. The arithmetic of
+    """Möller-Trumbore t of rays (``o``/``d`` three rows each, broadcast as
+    (n, 1, r)) against triangle rows ``tri`` (n, k, 9) = [a, e1, e2] -> (n,
+    k, r), inf where the test fails. The arithmetic of
     csrc/cluster_scalar.cu, in the JAX kernel's order."""
     ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (tri[..., q, None]
                                                  for q in range(9))
@@ -508,77 +529,114 @@ def _triangle_t(tri: Tensor, o, d) -> Tensor:
     return torch.where(ok, t, float("inf"))
 
 
-def cluster_scalar_plain(order: Optional[Tensor], gbound: Optional[Tensor],
-                         bvh, rays: Tensor, max_dist: float,
-                         ordered: bool = True) -> Tuple[Tensor, Tensor]:
-    """Plain version of both scalar-broadcast kernels: (depth (Rp,), sorted
-    idx (Rp,)).
+def _take(best: Tensor, bidx: Tensor, ray: Tensor, t: Tensor,
+          tid: Tensor) -> None:
+    """Update each ray's best hit (best, bidx) (R,) in place with the
+    candidates (ray, t, tid), t < max_dist, each triangle at most once per
+    ray: the smallest t wins, a tie the smallest index (the kernels' rule
+    ``t < best or t == best and id < bidx``); the winner keeps its own t
+    bits."""
+    R = best.shape[0]
+    tmin = best.new_full((R,), float("inf")).scatter_reduce(
+        0, ray, t, "amin")
+    tie = t == tmin[ray]
+    imin = torch.full((R,), _INT32_MAX, dtype=torch.int64,
+                      device=best.device).scatter_reduce(
+        0, ray[tie], tid[tie], "amin")
+    win = tie & (tid == imin[ray])
+    tw = best.new_full((R,), float("inf"))
+    tw[ray[win]] = t[win]
+    upd = (tw < best) | ((tw == best) & (imin < bidx))
+    best.copy_(torch.where(upd, tw, best))
+    bidx.copy_(torch.where(upd, imin.to(torch.int32), bidx))
 
-    The kernels' walk, vectorised over the ray blocks in lock-step. Per
-    group, the clusters are culled with each ray's best at the group's
-    start; the flagged ones are taken in group order, each (ordered) with
-    its sub-boxes culled at the cluster's start; a cluster's tested
-    triangles give the first smallest t, taken where it is below the ray's
-    best, which is the kernels' sequential strict update. Ordered blocks
-    stop at the first group whose entry bound every ray's best has reached.
 
-    A cluster that no ray of a block enters nearer than max_dist is never
-    flagged for that block, whatever the walk's best, so only the groups
-    and clusters that hold such a candidate for some block are walked; best
-    does not change between them and the bounds rise, so the exit checked
-    there stops a block where the kernel does. Ray blocks are independent:
-    a run of blocks (their rows of ``order``, ``gbound`` and ``rays``) gives
-    those blocks' results.
+def cluster_scalar_plain(tree, bvh, rays: Tensor, max_dist: float,
+                         ordered: bool = True,
+                         counts: Optional[Tensor] = None
+                         ) -> Tuple[Tensor, Tensor]:
+    """Plain version of both scalar-tier kernels: (depth (R,), sorted idx
+    (R,)).
+
+    The function the kernels compute, walked level by level as a frontier
+    of (ray, node) pairs: from the root of ``tree`` (a
+    :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterTree` over ``bvh``'s
+    clusters) down to the clusters, a pair's children are those whose box
+    the ray enters at t < max_dist; at a cluster the ordered walk keeps the
+    sub-boxes the ray enters so and tests their 8 triangles each, the
+    unordered one tests all S. Each ray gets its nearest hit t < max_dist,
+    a tie going to the smallest sorted index. This walk culls against
+    max_dist alone, where the kernels also prune by the ray's best hit, so
+    it is the walk without pruning: ``counts`` (R, 4) int32, if given,
+    receives each ray's internal nodes entered, child boxes tested,
+    sub-boxes tested and triangles tested in it, the most the kernels' own
+    counts can be. Rays are independent: any set of the columns of ``rays``
+    gives those rays' results.
     """
     dev = rays.device
-    Rp = rays.shape[1]
-    B = Rp // RAY_BLOCK
+    R = rays.shape[1]
     C, S = bvh.tri_data.shape[:2]
-    G = -(-C // GROUP)
-    o = [rays[q].view(B, 1, RAY_BLOCK) for q in range(3)]
-    d = [rays[3 + q].view(B, 1, RAY_BLOCK) for q in range(3)]
-    inv = [torch.reciprocal(x) for x in d]
-    best = torch.full((B, RAY_BLOCK), float(max_dist), dtype=torch.float32,
-                      device=dev)
-    bidx = torch.full((B, RAY_BLOCK), -1, dtype=torch.int32, device=dev)
-    seq = (order.to(torch.int64) if ordered
-           else torch.arange(C, device=dev).expand(B, C))
-    cand = torch.zeros((B, G * GROUP), dtype=torch.bool, device=dev)
-    step = max(1, _SCALAR_CULL_ELEMS // (B * RAY_BLOCK))
-    for s in range(0, C, step):
-        e = min(s + step, C)
-        cand[:, s:e] = _slab_useful(bvh.boxes[seq[:, s:e]], o, inv,
-                                    best[:, None]).any(-1)
-    cand = cand.view(B, G, GROUP)
-    walk = cand.any(dim=0).cpu()  # (G, GROUP): a candidate for some block
-    live = torch.ones((B, 1), dtype=torch.bool, device=dev)
-    for g in walk.any(dim=1).nonzero()[:, 0].tolist():
-        if ordered:
-            live = live & ~(best <= gbound[:, g, None]).all(dim=1,
-                                                            keepdim=True)
-        js = walk[g].nonzero()[:, 0].to(dev)
-        cs = seq[:, g * GROUP + js]  # (B, nj)
-        flags = (_slab_useful(bvh.boxes[cs], o, inv, best[:, None]).any(-1)
-                 & cand[:, g, js] & live)
-        for k in range(cs.shape[1]):
-            c = cs[:, k]
-            if ordered:
-                sub = (_slab_useful(bvh.sub_boxes[c], o, inv, best[:, None])
-                       .any(-1) & flags[:, k, None])
-                tmask = sub.repeat_interleave(SUB_SIZE, dim=1)
-            else:
-                tmask = flags[:, k, None].expand(B, S)
-            t = torch.where(tmask[..., None],
-                            _triangle_t(bvh.tri_data[c], o, d), float("inf"))
-            tmin, m = t.min(dim=1)
-            upd = tmin < best
-            best = torch.where(upd, tmin, best)
-            bidx = torch.where(upd, (c[:, None] * S + m).to(torch.int32),
-                               bidx)
-    return best.reshape(Rp), bidx.reshape(Rp)
+    md = float(max_dist)
+    o, inv = rays[:3], torch.reciprocal(rays[3:])
+    off = tree.offsets()
+    tally = torch.zeros((4, R), dtype=torch.int64, device=dev)
+    ray = torch.arange(R, device=dev)
+    node = torch.zeros(R, dtype=torch.int64, device=dev)
+
+    def frontier(boxes, width, ray, node):
+        """The (ray, node * width + j) pairs whose child j's box, from
+        ``boxes(node)`` (p, 6, width), the ray enters at t < max_dist."""
+        out_r, out_n = [ray[:0]], [node[:0]]
+        step = max(1, _SCALAR_CELLS // width)
+        for s in range(0, ray.shape[0], step):
+            r, n = ray[s:s + step], node[s:s + step]
+            bx = boxes(n)
+            tmin, ok = _slab([bx[:, a] for a in range(3)],
+                             [bx[:, a + 3] for a in range(3)],
+                             [o[a, r, None] for a in range(3)],
+                             [inv[a, r, None] for a in range(3)])
+            p, j = (ok & (tmin < md)).nonzero(as_tuple=True)
+            out_r.append(r[p])
+            out_n.append(n[p] * width + j)
+        return torch.cat(out_r), torch.cat(out_n)
+
+    for k in range(len(tree.sizes) - 1, 0, -1):
+        tally[0].index_add_(0, ray, torch.ones_like(ray))
+        tally[1].index_add_(0, ray, (tree.sizes[k - 1] - node * TREE_WIDTH)
+                            .clamp(max=TREE_WIDTH))
+        ray, node = frontier(lambda n: tree.nodes[off[k] + n], TREE_WIDTH,
+                             ray, node)
+    if ordered:  # (ray, cluster) -> (ray, sub-box), 8 triangles each
+        nsub = S // SUB_SIZE
+        tally[2].index_add_(0, ray, torch.full_like(ray, nsub))
+        ray, node = frontier(lambda n: bvh.sub_boxes[n].transpose(1, 2),
+                             nsub, ray, node)
+        width = SUB_SIZE
+    else:
+        width = S
+    tally[3].index_add_(0, ray, torch.full_like(ray, width))
+    best = torch.full((R,), md, dtype=torch.float32, device=dev)
+    bidx = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    slot = torch.arange(width, device=dev)
+    tri = bvh.tri_data.view(C * S, 9)
+    step = max(1, _SCALAR_CELLS // width)
+    for s in range(0, ray.shape[0], step):
+        r = ray[s:s + step]
+        first = node[s:s + step] * width
+        t = _triangle_t(tri[first[:, None] + slot],
+                        [o[a, r].view(-1, 1, 1) for a in range(3)],
+                        [rays[3 + a, r].view(-1, 1, 1) for a in range(3)]
+                        )[..., 0]
+        tmin, m = t.min(dim=1)  # the first smallest: the smallest index
+        hit = tmin < md
+        _take(best, bidx, r[hit], tmin[hit], (first + m)[hit])
+    if counts is not None:
+        counts.copy_(tally.T)
+    return best, bidx
 
 
-def _check_scalar_inputs(bvh, rays: Tensor, order, gbound) -> None:
+def _check_scalar_inputs(tree, bvh, rays: Tensor, ordered: bool,
+                         counts: Optional[Tensor]) -> None:
     tri = bvh.tri_data
     if tri.dim() != 3 or tri.shape[2] != 9 or tri.dtype != torch.float32:
         raise ValueError(f"tri_data must be (C, S, 9) float32, got "
@@ -586,13 +644,22 @@ def _check_scalar_inputs(bvh, rays: Tensor, order, gbound) -> None:
     C, S = tri.shape[:2]
     if tuple(bvh.boxes.shape) != (C, 6) or bvh.boxes.dtype != torch.float32:
         raise ValueError(f"boxes must be ({C}, 6) float32")
-    if (rays.dim() != 2 or rays.shape[0] != 6 or rays.shape[1] % RAY_BLOCK
+    if C >= 1 << 27:
+        raise ValueError(f"the scalar tier takes fewer than 2^27 clusters, "
+                         f"got {C}")
+    sizes = tree_sizes(C)
+    N = sum(sizes[1:])
+    if (tuple(tree.sizes) != sizes or tree.nodes.dtype != torch.float32
+            or tuple(tree.nodes.shape) != (N, 6, TREE_WIDTH)):
+        raise ValueError(f"tree must be the ClusterTree of {C} clusters: "
+                         f"nodes ({N}, 6, {TREE_WIDTH}) float32, sizes "
+                         f"{sizes}")
+    if (rays.dim() != 2 or rays.shape[0] != 6 or rays.shape[1] < 1
             or rays.dtype != torch.float32):
-        raise ValueError(f"rays must be (6, Rp) float32 with Rp % "
-                         f"{RAY_BLOCK} == 0")
-    B = rays.shape[1] // RAY_BLOCK
-    tensors = [bvh.boxes, tri, rays]
-    if order is not None:
+        raise ValueError("rays must be (6, R) float32 with R >= 1")
+    R = rays.shape[1]
+    tensors = [tree.nodes, bvh.boxes, tri, rays]
+    if ordered:
         nsub = S // SUB_SIZE
         if S % SUB_SIZE or nsub > 32:
             raise ValueError(f"ordered cast needs S % {SUB_SIZE} == 0 and "
@@ -600,12 +667,11 @@ def _check_scalar_inputs(bvh, rays: Tensor, order, gbound) -> None:
         if (tuple(bvh.sub_boxes.shape) != (C, nsub, 6)
                 or bvh.sub_boxes.dtype != torch.float32):
             raise ValueError(f"sub_boxes must be ({C}, {nsub}, 6) float32")
-        if tuple(order.shape) != (B, C) or order.dtype != torch.int32:
-            raise ValueError(f"order must be ({B}, {C}) int32")
-        G = -(-C // GROUP)
-        if tuple(gbound.shape) != (B, G) or gbound.dtype != torch.float32:
-            raise ValueError(f"gbound must be ({B}, {G}) float32")
-        tensors += [bvh.sub_boxes, order, gbound]
+        tensors.append(bvh.sub_boxes)
+    if counts is not None:
+        if tuple(counts.shape) != (R, 4) or counts.dtype != torch.int32:
+            raise ValueError(f"counts must be ({R}, 4) int32")
+        tensors.append(counts)
     for t in tensors:
         if t.device != rays.device:
             raise ValueError("all cast inputs must be on one device")
@@ -613,81 +679,68 @@ def _check_scalar_inputs(bvh, rays: Tensor, order, gbound) -> None:
             raise ValueError("cast inputs must be contiguous")
 
 
-def _scalar(kernel, order, gbound, bvh, rays, max_dist, counts):
-    ordered = order is not None
-    _check_scalar_inputs(bvh, rays, order, gbound)
+def _scalar(kernel, tree, bvh, rays, max_dist, counts, ordered):
+    _check_scalar_inputs(tree, bvh, rays, ordered, counts)
     if rays.device.type == "cpu":
-        return cluster_scalar_plain(order, gbound, bvh, rays, max_dist,
-                                    ordered)
+        return cluster_scalar_plain(tree, bvh, rays, max_dist, ordered,
+                                    counts)
     if rays.device.type != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
     dev = rays.device
     C, S = bvh.tri_data.shape[:2]
-    Rp = rays.shape[1]
-    B = Rp // RAY_BLOCK
-    if counts is not None and (tuple(counts.shape) != (B, 3)
-                               or counts.dtype != torch.int32
-                               or counts.device != dev):
-        raise ValueError(f"counts must be ({B}, 3) int32 on {dev}")
-    depth = torch.empty((Rp,), dtype=torch.float32, device=dev)
-    idx = torch.empty((Rp,), dtype=torch.int32, device=dev)
-    head = ([order.data_ptr(), gbound.data_ptr(), bvh.boxes.data_ptr(),
-             bvh.sub_boxes.data_ptr()] if ordered else [bvh.boxes.data_ptr()])
+    R = rays.shape[1]
+    depth = torch.empty((R,), dtype=torch.float32, device=dev)
+    idx = torch.empty((R,), dtype=torch.int32, device=dev)
+    head = [tree.nodes.data_ptr()]
+    if ordered:
+        head.append(bvh.sub_boxes.data_ptr())
     with torch.cuda.device(dev):
-        kernel.launch(*head, bvh.tri_data.data_ptr(), rays.data_ptr(), Rp, B,
-                      C, S, float(max_dist), depth.data_ptr(),
-                      idx.data_ptr(),
+        kernel.launch(*head, bvh.tri_data.data_ptr(), rays.data_ptr(), R, C,
+                      S, float(max_dist), depth.data_ptr(), idx.data_ptr(),
                       counts.data_ptr() if counts is not None else None)
     return depth, idx
 
 
-def cluster_scalar_ordered(order: Tensor, gbound: Tensor, bvh, rays: Tensor,
-                           max_dist: float, counts: Optional[Tensor] = None
+def cluster_scalar_ordered(tree, bvh, rays: Tensor, max_dist: float,
+                           counts: Optional[Tensor] = None
                            ) -> Tuple[Tensor, Tensor]:
-    """Front-to-back scalar-broadcast cast: (depth (Rp,), sorted idx (Rp,)).
+    """Scalar-tier cast with the sub-box cull: (depth (R,), sorted idx
+    (R,)), one warp per ray walking ``tree`` nearest child first.
 
-    ``bvh`` a :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterBVH`,
-    ``rays`` (6, Rp) rows [o; d], ``order``/``gbound`` from
-    :func:`_order_and_bounds`. ``counts`` (B, 3) int32, if given, receives
-    each block's groups walked, clusters flagged and triangles tested
-    (kernel only)."""
-    return _scalar(SCALAR_ORDERED, order, gbound, bvh, rays, max_dist,
-                   counts)
+    ``tree`` the :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterTree`
+    of ``bvh`` (a :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterBVH`),
+    ``rays`` (6, R) rows [o; d]. ``counts`` (R, 4) int32, if given,
+    receives each ray's internal nodes entered, child boxes tested,
+    sub-boxes tested and triangles tested. Launches
+    ``csrc/cluster_scalar.cu`` for CUDA tensors and runs
+    :func:`cluster_scalar_plain` (whose counts are those of the walk
+    without pruning) for CPU tensors."""
+    return _scalar(SCALAR_ORDERED, tree, bvh, rays, max_dist, counts, True)
 
 
-def cluster_scalar(bvh, rays: Tensor, max_dist: float,
+def cluster_scalar(tree, bvh, rays: Tensor, max_dist: float,
                    counts: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Index-order scalar-broadcast cast, same outputs and ``counts`` as
-    :func:`cluster_scalar_ordered`."""
-    return _scalar(SCALAR, None, None, bvh, rays, max_dist, counts)
+    """Scalar-tier cast with the cluster cull only, children in index
+    order; the arguments and outputs of :func:`cluster_scalar_ordered`."""
+    return _scalar(SCALAR, tree, bvh, rays, max_dist, counts, False)
 
 
 def cast_clusters(bvh, origins: Tensor, dirs: Tensor, max_dist: float = 10.0,
-                  ordered: bool = True) -> Tuple[Tensor, Tensor]:
-    """Closest hit through the scalar-broadcast kernels: (t, sorted-triangle
+                  ordered: bool = True, tree=None) -> Tuple[Tensor, Tensor]:
+    """Closest hit through the scalar-tier kernels: (t, sorted-triangle
     index) of rays (R, 3); map the index through ``bvh.prim_order`` for face
     ids.
 
-    Rays are padded to a multiple of RAY_BLOCK with o = 0, d = 1, as the JAX
-    package pads them (the last block's mean origin and spread include the
-    padding). ``ordered`` walks each block's clusters front to back with an
-    early exit; both walks are exact.
+    ``ordered`` adds the sub-box cull and walks nearest child first; both
+    walks are exact. ``tree`` is ``bvh``'s
+    :class:`~primitive3d_tpu_torch.bvh.clusters.ClusterTree`, built here
+    when not given (a caster builds it once per mesh).
     """
-    R = origins.shape[0]
-    pad = (-R) % RAY_BLOCK
-    dev = origins.device
-    o = torch.cat([origins, torch.zeros((pad, 3), dtype=torch.float32,
-                                        device=dev)])
-    d = torch.cat([dirs, torch.ones((pad, 3), dtype=torch.float32,
-                                    device=dev)])
-    rays = torch.cat([o, d], dim=1).T.contiguous()
-    if ordered:
-        order, gbound = _order_and_bounds(bvh, o, o.shape[0] // RAY_BLOCK)
-        depth, idx = cluster_scalar_ordered(order, gbound, bvh, rays,
-                                            max_dist)
-    else:
-        depth, idx = cluster_scalar(bvh, rays, max_dist)
-    return depth[:R], idx[:R]
+    if tree is None:
+        tree = build_cluster_tree(bvh.boxes)
+    rays = torch.cat([origins, dirs], dim=1).T.contiguous()
+    fn = cluster_scalar_ordered if ordered else cluster_scalar
+    return fn(tree, bvh, rays, max_dist)
 
 
 # --- backward: plane cotangents -> cluster-space rows ------------------------

@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .bvh.clusters import CLUSTER_SIZE, build_clusters, build_mxu_clusters
+from .bvh.clusters import (CLUSTER_SIZE, build_cluster_tree, build_clusters,
+                           build_mxu_clusters)
 from .core import debug
 from .core.config import RayCastConfig
 from .core.device import DeviceLike, as_tensor, resolve_device
@@ -207,10 +208,10 @@ class ClusterRayCaster(RayCaster):
     The JAX package's tier rules, unchanged: meshes of at most
     ``mxu_max_tris`` (default ``MXU_MAX_TRIS``) triangles use the resident
     tier, larger ones the stream tier, and meshes of more than
-    ``mxu_stream_max_tris`` (default 32767 clusters) the scalar-broadcast
-    tier (``cast_clusters`` on Morton-order clusters, then the finish from
-    per-face rows). The cluster size is 128 up to 500k triangles and 256
-    above.
+    ``mxu_stream_max_tris`` (default 32767 clusters) the scalar tier
+    (``cast_clusters`` on Morton-order clusters, each ray walking a box tree
+    over them built once here, then the finish from per-face rows). The
+    cluster size is 128 up to 500k triangles and 256 above.
     """
 
     # the one default of the resident-tier cap: RayCastConfig and
@@ -238,6 +239,7 @@ class ClusterRayCaster(RayCaster):
             self.cbvh = build_mxu_clusters(self.triangles, cluster_size=cs)
         else:
             self.cbvh = build_clusters(self.triangles, cluster_size=cs)
+            self.tree = build_cluster_tree(self.cbvh.boxes)
             self._fin = _finish_data(self.triangles)
 
     def cast(self, origins, directions) -> RayHits:
@@ -247,7 +249,8 @@ class ClusterRayCaster(RayCaster):
                 self.cbvh, o, d, max_dist=self.max_dist, stream=self.stream,
                 with_fin=True, edge_wildcard=self.edge_wildcard)
             return _finish_hits_fin(finr, depth, sidx, o, d, self.max_dist)
-        depth, sidx = cast_clusters(self.cbvh, o, d, max_dist=self.max_dist)
+        depth, sidx = cast_clusters(self.cbvh, o, d, max_dist=self.max_dist,
+                                    tree=self.tree)
         return _finish_hits(self._fin, self.cbvh.prim_order, depth, sidx, o,
                             d, self.max_dist)
 

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 import primitive3d_tpu_torch as p3t
-from primitive3d_tpu_torch.bvh.clusters import (build_clusters,
+from primitive3d_tpu_torch.bvh.clusters import (build_cluster_tree,
+                                                build_clusters,
                                                 build_mxu_clusters)
 from primitive3d_tpu_torch.core.config import RayCastConfig
 from primitive3d_tpu_torch.geometry.triangle import subdivide
@@ -187,50 +188,56 @@ def test_training_step_card_equals_cpu(cuda, case, monkeypatch):
                                atol=1e-6 * float(gh.abs().max()))
 
 
+@pytest.mark.parametrize("S", [128, 256])
 @pytest.mark.parametrize("ordered", [True, False])
-def test_scalar_kernels_match_plain(cuda, ordered):
-    """The bunny subdivided once (106,240 triangles, 830 clusters of 128)
-    under 128x96 rays plus axis-parallel rays from cluster box planes: the
-    kernel equals its plain version bit for bit, and its counts are
-    consistent."""
+def test_scalar_kernels_match_plain(cuda, ordered, S):
+    """The bunny subdivided once with its first 5,000 triangles repeated
+    (111,240 triangles: 870 clusters of 128 or 435 of 256, neither a
+    multiple of 32) under 128x96 rays plus axis-parallel rays from the
+    planes of cluster boxes, sub-boxes and level-1 tree boxes (0 * inf in
+    the slab test): the kernel equals its plain version bit for bit in
+    depth and id, and its counts are those of a walk that prunes the plain
+    version's walk."""
     v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0, device=cuda)
     tris = subdivide(v[f.long()])
-    bvh = build_clusters(tris)
+    tris = torch.cat([tris, tris[:5000]])
+    bvh = build_clusters(tris, cluster_size=S)
+    tree = build_cluster_tree(bvh.boxes)
+    assert bvh.num_clusters % 32 != 0 and len(tree.sizes) == 3
     cam = camera_rays(128, 96, origin=(0.43, 0.57, -1.5),
                       look_at=(0.5, 0.5, 0.5), fov_y=35.0)
-    k = torch.arange(1024, device=cuda) % bvh.num_clusters
-    o_ap = torch.stack([bvh.boxes[k, 0], bvh.boxes[k, 4],
-                        torch.full_like(k, -1.0, dtype=torch.float32)], 1)
-    o = torch.cat([torch.from_numpy(cam.origins).to(cuda), o_ap])
+    lv1 = tree.nodes[tree.offsets()[2]:].transpose(1, 2).reshape(-1, 6)
+    planes = [bvh.boxes, bvh.sub_boxes.reshape(-1, 6), lv1[:tree.sizes[1]]]
+    o_ap = []
+    for bx in planes:
+        k = torch.arange(512, device=cuda) * 7 % bx.shape[0]
+        o_ap.append(torch.stack([bx[k, 0], bx[k, 4],
+                                 torch.full_like(bx[k, 0], -1.0)], 1))
+    o = torch.cat([torch.from_numpy(cam.origins).to(cuda), *o_ap])
     d = torch.cat([torch.from_numpy(cam.dirs).to(cuda),
-                   torch.tensor([0.0, 0.0, 1.0], device=cuda).expand(1024, 3)])
+                   torch.tensor([0.0, 0.0, 1.0], device=cuda).expand(1536, 3)])
     rays = torch.cat([o, d], dim=1).T.contiguous()
-    B = o.shape[0] // rk.RAY_BLOCK
-    counts = torch.zeros((B, 3), dtype=torch.int32, device=cuda)
-    if ordered:
-        order, gb = rk._order_and_bounds(bvh, o, B)
-        kern, args = rk.SCALAR_ORDERED, (order, gb, bvh, rays, 10.0)
-        fn = rk.cluster_scalar_ordered
-    else:
-        order = gb = None
-        kern, args, fn = rk.SCALAR, (bvh, rays, 10.0), rk.cluster_scalar
+    R = rays.shape[1]
+    kern, fn = ((rk.SCALAR_ORDERED, rk.cluster_scalar_ordered) if ordered
+                else (rk.SCALAR, rk.cluster_scalar))
+    counts = torch.zeros((R, 4), dtype=torch.int32, device=cuda)
     before = kern.launches
-    got = fn(*args, counts=counts)
+    got = fn(tree, bvh, rays, 10.0, counts=counts)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = rk.cluster_scalar_plain(order, gb, bvh, rays, 10.0, ordered)
+    full = torch.zeros_like(counts)
+    want = rk.cluster_scalar_plain(tree, bvh, rays, 10.0, ordered, full)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert 0.05 < float((got[1] >= 0).float().mean()) < 0.95
-    G = -(-bvh.num_clusters // rk.GROUP)
-    groups, clusters, tested = counts.long().unbind(1)
-    assert bool(((groups >= 1) & (groups <= G)).all())
-    assert bool((clusters <= groups * rk.GROUP).all())
-    S = bvh.tri_data.shape[1]
+    assert bool((counts <= full).all()) and bool((counts[:, 0] >= 1).all())
+    nodes, boxes, subs, tested = counts.long().unbind(1)
+    assert bool((boxes <= nodes * 32).all())
     if ordered:
-        assert bool((tested <= clusters * S).all()) and tested.sum() > 0
+        assert bool((subs % (S // 8) == 0).all() and (tested % 8 == 0).all())
+        assert bool((tested <= subs // (S // 8) * S).all())
     else:
-        assert bool((groups == G).all()) and torch.equal(tested, clusters * S)
+        assert bool((subs == 0).all() and (tested % S == 0).all())
 
 
 @pytest.mark.parametrize("backend", ["pallas-scalar", "mxu", "bruteforce",
