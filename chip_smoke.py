@@ -9,8 +9,8 @@ It builds every kernel of ``primitive3d_tpu_torch/csrc`` with nvcc and
 drives two paths through the entry points a user calls, each with the
 kernel launch counts set to 0 just before it and read just after:
 
-  * the serving path (marching cubes -> cluster ray caster -> cast) at two
-    full-size configurations:
+  * the serving path (marching cubes -> cluster ray caster -> work-list
+    cull -> cast) at two full-size configurations:
       - bunny: ``examples/data/bunny.npy`` (66^3) -> 13,282 vertices /
         26,560 faces -> 512x512 camera rays, resident cast tier;
       - flagship sphere: the 256^3 sphere SDF (r = 0.8 on [-1, 1]^3) ->
@@ -33,7 +33,9 @@ depth against the analytic sphere and its loss and gradient norm against
 FLAGSHIP_r5.json, the large mesh's frame against the bunny's and, on the
 rays where they disagree, against a brute force of the large mesh), runs three
 Adam steps of the flagship fitting recipe, holds each kernel against its
-plain PyTorch version on the card at the shapes its path gives it, casts
+plain PyTorch version on the card at the shapes its path gives it (the
+stream cast bit for bit on every ray but those a float64 witness settles:
+``raycast_kernel.stream_disputes``), casts
 the level-0 bunny with the "mxu", "bruteforce" and "bvh" backends against
 the cluster caster, times the kernels and the paths' stages with CUDA
 events, and prints:
@@ -43,7 +45,9 @@ events, and prints:
     error against its plain version, its time, the plain version's time
     (for the scalar kernels on all ``plain_rays`` of the large frame), its
     lower bound on this card and the time of one PyTorch call that computes
-    the same function, where there is one;
+    the same function, where there is one. The work-list cull
+    (``stream_cull``) ports no Pallas kernel: the JAX package builds the
+    lists in plain XLA, and its ``replaces`` names those lines;
   * the card's name and power limit (nvidia-smi);
   * last, ``{"ok": true, "device": {...}}``.
 
@@ -74,8 +78,10 @@ FLAGSHIP_COUNTS = (196128, 392252)  # the JAX package's counts of this grid
 FLAGSHIP_VC, FLAGSHIP_FC = 262_144, 425_984
 FLAGSHIP_R5 = dict(loss=48.77151107788086, grad_norm=0.002150929532945156)
 BOX = dict(lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0))
-SERVING_KERNELS = ("mc_masks", "cluster_cast_resident", "cluster_cast_stream")
-TRAINING_KERNELS = ("mc_masks", "cluster_cast_stream", "plane_scatter")
+SERVING_KERNELS = ("mc_masks", "stream_cull", "cluster_cast_resident",
+                   "cluster_cast_stream")
+TRAINING_KERNELS = ("mc_masks", "stream_cull", "cluster_cast_stream",
+                    "plane_scatter")
 LARGE_KERNELS = ("mc_masks", "cluster_scalar_ordered", "cluster_scalar")
 # the large mesh: the bunny subdivided LEVELS times, child k of face p is
 # 4p + k, so face_id // 4**LEVELS is the bunny face a hit lies on
@@ -87,6 +93,10 @@ LARGE_TRIS = BUNNY_COUNTS[1] * 4 ** LEVELS
 # not counted)
 SLAB_OPS = 25
 TRI_OPS = 46
+# fp32 operations per (chunk, cluster) cell of the work-list cull: per axis
+# 4 subtractions, 8 products and 14 min / max, then 4 to combine the axes,
+# 3 compares, the clamp and the min of the bound
+CULL_OPS_PER_CELL = 3 * (4 + 8 + 14) + 4 + 3 + 2
 # large-mesh frame against the bunny's: shares that must agree, against the
 # brute force (Möller-Trumbore, as the scalar tier) on hit/miss, face and
 # depth; against the resident cast (Plücker sign tests, which can miss both
@@ -369,9 +379,9 @@ def main() -> int:
     cluster_cast_stream, plane_scatter = rk.cluster_cast_stream, \
         rk.plane_scatter
 
-    def recording_stream(*args):
-        stream_args.append(args)
-        return cluster_cast_stream(*args)
+    def recording_stream(*args, **kw):
+        stream_args.append((args, kw))
+        return cluster_cast_stream(*args, **kw)
 
     def recording_scatter(*args):
         scatter_args.append(args)
@@ -641,9 +651,58 @@ def main() -> int:
         max_abs_err=float(err), ms=ms, plain_ms=pms,
         bound_ms=mbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None))
-    log(f"mc_masks 256^3: exact; {ms:.4f} ms (plain {pms:.3f} ms)")
+    # the other grid the paths launch it on: the bunny's 66^3 (4 of its 7
+    # launches; the 256^3 sphere takes the other 3)
+    bunny_dev = torch.from_numpy(bunny).to(dev)
+    bx, by, bz, bm = mk.fused_masks(bunny_dev, 0.0)
+    check(all(torch.equal(a, b) for a, b in zip(
+        (bx, by, bz, bm), mk.fused_masks_plain(bunny_dev, 0.0))),
+        "mc_masks differs from its plain version at 66^3")
+    ms66 = event_ms(lambda: mk.fused_masks(bunny_dev, 0.0), iters=20)
+    b66 = nbytes(bunny_dev, bx, by, bz, bm) / HBM_BYTES_PER_S * 1e3
+    log(f"mc_masks 256^3: exact; {ms:.4f} ms (plain {pms:.3f} ms), bound "
+        f"{mbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; 66^3: exact; "
+        f"{ms66:.4f} ms, bound {b66:.5f} ms")
+
+    def same_lists(got, want):
+        """Bit equality of two (n, work, bounds) lists."""
+        return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and ((got[2] is None and want[2] is None)
+                     or torch.equal(got[2].view(torch.int32),
+                                    want[2].view(torch.int32))))
+
+    def exact_cast(name, got, want, lists=None):
+        """Depth (bits), index and finish rows equal on every ray; print the
+        rays that differ and fail. For the stream kernel (``lists`` = (n,
+        entries, w, rays, max_dist, edge_wildcard)), a differing ray passes
+        only where the float64 witness of rk.stream_disputes settles it:
+        the plain version's nearer hit is float32 noise, and the kernel
+        kept the nearest hit that is not. Returns the rays settled."""
+        dk, ik, fk = got
+        dp, ip, fp = want
+        fin_bad = ((fk.view(torch.int32) != fp.view(torch.int32)).any(dim=1)
+                   if fk is not None else torch.zeros_like(ik, dtype=bool))
+        bad = ((dk.view(torch.int32) != dp.view(torch.int32)) | (ik != ip))
+        check(not bool((fin_bad & ~bad).any()), f"{name}: finish rows differ "
+              f"where depth and index agree")
+        if lists is None:
+            qs = bad.nonzero()[:, 0]
+            settled = torch.zeros_like(qs, dtype=torch.bool)
+            clean = dk[qs]
+        else:
+            qs, settled, clean = rk.stream_disputes(*lists, got, want)
+        for j, q in enumerate(qs[:20].tolist()):
+            log(f"  {name} ray {q}: kernel ({float(dk[q])!r}, {int(ik[q])}), "
+                f"plain ({float(dp[q])!r}, {int(ip[q])}), nearest hit that "
+                f"is not noise {float(clean[j])!r}; settled by the float64 "
+                f"witness: {bool(settled[j])}")
+        nbad = int((~settled).sum())
+        check(nbad == 0, f"{name}: differs from the plain version on {nbad} "
+              f"of {dk.shape[0]} rays")
+        return int(qs.shape[0])
 
     stage = {}
+    cull_rows = {}
     for name, rc, cam, kern, fn in (
             ("bunny", rc_b, cam_b, rk.RESIDENT, rk.cluster_cast_resident),
             ("flagship", rc_f, cam_f, rk.STREAM, rk.cluster_cast_stream)):
@@ -656,22 +715,63 @@ def main() -> int:
         bvh = rc.cbvh
         n, work, bounds, rays = rk._mxu_prep(bvh, op, dp, rc.max_dist,
                                              rc.stream)
+        # the work-list cull against its plain version, bit for bit: both
+        # tiers on the bunny, the stream tier on the flagship
+        for stream in ((False, True) if name == "bunny" else (True,)):
+            got = rk.work_lists(bvh.boxes, rays, rc.max_dist, stream)
+            want = rk.work_lists_plain(bvh.boxes, rays, rc.max_dist, stream)
+            check(same_lists(got, want), f"stream_cull ({name}, "
+                  f"{'stream' if stream else 'resident'} tier) differs from "
+                  f"its plain version")
+            if stream == rc.stream:
+                check(same_lists((n, work, bounds), got),
+                      f"stream_cull ({name}): the path's lists differ")
+        C = bvh.num_clusters
+        B = n.shape[0]
+        cms = event_ms(lambda: rk.work_lists(bvh.boxes, rays, rc.max_dist,
+                                             rc.stream), iters=20)
+        cpms = event_ms(lambda: rk.work_lists_plain(
+            bvh.boxes, rays, rc.max_dist, rc.stream), iters=3, warmup=1)
+        # the cull's bound: the rays' origins and directions read once, the
+        # boxes, the lists written once; every (chunk, cluster) cell's slab
+        # test, the intervals (two compares per value, one division per
+        # direction) and, stream tier, n log2 n comparisons to sort a row
+        nb = n.double()
+        sort_ops = (float((nb * torch.log2(nb.clamp(min=2))).sum())
+                    if rc.stream else 0.0)
+        c_ops = (B * rk.NCH * C * CULL_OPS_PER_CELL + B * rk.MBLOCK * 15
+                 + sort_ops)
+        c_bytes = (B * rk.MBLOCK * 6 * 4 + nbytes(bvh.boxes, n, work, bounds))
+        ct_ops = c_ops / FP32_FLOP_PER_S * 1e3
+        ct_bytes = c_bytes / HBM_BYTES_PER_S * 1e3
+        cull_rows[name] = dict(
+            name=rk.CULL.name, route="cuda",
+            source="primitive3d_tpu_torch/csrc/stream_cull.cu",
+            replaces=rk.CULL.replaces, launches=launches[rk.CULL.name],
+            max_abs_err=0.0, ms=cms, plain_ms=cpms,
+            bound_ms=max(ct_ops, ct_bytes),
+            bound_by="operations" if ct_ops >= ct_bytes else "bytes",
+            library_ms=None)
+        log(f"stream_cull ({name}, {'stream' if rc.stream else 'resident'} "
+            f"tier): lists equal the plain version's bit for bit; {cms:.4f} "
+            f"ms (plain {cpms:.3f} ms); {B} blocks x {C} clusters, "
+            f"{int(n.sum())} list entries, bound {max(ct_ops, ct_bytes):.4f} "
+            f"ms (operations {ct_ops:.4f}, bytes {ct_bytes:.4f})")
+
         args = (n, work) + ((bounds,) if rc.stream else ()) + (
             bvh.w, bvh.fin, rays, rc.max_dist)
-        visits = torch.zeros(n.shape[0] * rk.NCH, dtype=torch.int32,
-                             device=dev)
-        dk, ik, fk = fn(*args, visits=visits)
+        kw = (dict(boxes=bvh.boxes, sub_boxes=bvh.sub_boxes) if rc.stream
+              else {})
+        visits = torch.zeros(((B * rk.NCH, 3) if rc.stream else B * rk.NCH),
+                             dtype=torch.int32, device=dev)
+        dk, ik, fk = fn(*args, visits=visits, **kw)
         dpl, ipl, fpl = rk.cluster_cast_plain(n, work, bounds, bvh.w,
                                               bvh.fin, rays, rc.max_dist)
-        agree = float((ik == ipl).float().mean())
-        check(agree >= 0.9999, f"{kern.name}: sidx agrees on {agree}")
-        hk = _finish_hits_fin(fk, dk, ik, op, dp, rc.max_dist)
-        hp = _finish_hits_fin(fpl, dpl, ipl, op, dp, rc.max_dist)
-        same = ik == ipl
-        check(torch.allclose(hk.depth[same], hp.depth[same], rtol=1e-5,
-                             atol=0), f"{kern.name}: refined depth differs")
+        nset = exact_cast(f"{kern.name} ({name})", (dk, ik, fk),
+                          (dpl, ipl, fpl),
+                          (n, work, bvh.w, rays, rc.max_dist, False)
+                          if rc.stream else None)
         err = float((dk - dpl).abs().max())
-        nvis = int(visits.sum())
         # (cluster, chunk) visits in the work list: what the plain version
         # does, and what the stream kernel would do without its early exit
         live = torch.arange(work.shape[1], device=dev)[None, :] < n[:, None]
@@ -681,14 +781,33 @@ def main() -> int:
         else:
             flagged = int(n.sum())
         S = bvh.cluster_size
-        ms = event_ms(lambda: fn(*args))
+        ms = event_ms(lambda: fn(*args, **kw))
         pms = event_ms(lambda: rk.cluster_cast_plain(
             n, work, bounds, bvh.w, bvh.fin, rays, rc.max_dist),
             iters=3, warmup=1)
-        ops = nvis * S * rk.RCHUNK * CAST_OPS_PER_TEST
-        cbytes = nbytes(n, work, bounds, bvh.w, bvh.fin, rays, dk, ik, fk)
+        # the bound: the work the frame's result says any walk of the
+        # cluster boxes and their sub-boxes needs, whatever its design
+        # (needed_work, the scalar tier's rule: every box a ray enters is
+        # listed for its chunk, the lists being conservative); the kernel's
+        # own visits give a second, per-visit figure
+        per = S // bvh.sub_boxes.shape[1]
+        slabs_c, tris_c, used_c, used_s = needed_work(
+            rk, bvh, o, d, dk[:R], ik[:R] >= 0, rc.max_dist)
+        tris_c = tris_c // rk.SUB_SIZE * per
+        ops = slabs_c * SLAB_OPS + tris_c * CAST_OPS_PER_TEST
+        cbytes = (R * (9 * 4 + 4 + 4 + 8 * 4) + (used_c + used_s) * 6 * 4
+                  + used_s * per * rk.WROW * 4)
         t_ops = ops / FP32_FLOP_PER_S * 1e3
         t_bytes = cbytes / HBM_BYTES_PER_S * 1e3
+        if rc.stream:
+            reached, tested, subs = (int(x) for x in visits.sum(dim=0))
+            lanes = rk.STREAM_WALK
+            tris = subs * per
+        else:
+            reached = tested = int(visits.sum())
+            lanes = rk.RCHUNK
+            tris = tested * S
+        visit_ops = tris * lanes * CAST_OPS_PER_TEST
         kernels.append(dict(
             name=kern.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/cluster_cast.cu",
@@ -697,12 +816,27 @@ def main() -> int:
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
-        B = n.shape[0]
-        log(f"{kern.name} ({name}): sidx agree {agree:.6f}, raw depth max "
-            f"err {err}; {ms:.3f} ms (plain {pms:.2f} ms); {B} blocks, "
-            f"{int(n.sum())} list entries, {nvis} visits of {flagged} in "
-            f"the list ({nvis / (B * rk.NCH):.2f} per chunk), bound "
-            f"{max(t_ops, t_bytes):.4f} ms")
+        units = B * rk.NCH * (rk.RCHUNK // rk.STREAM_WALK if rc.stream
+                              else 1)
+        log(f"{kern.name} ({name}): depth, index and finish rows equal the "
+            f"plain version's on all {rays.shape[1]} rays"
+            f"{f' but the {nset} settled above' if nset else ''}; {ms:.3f} ms "
+            f"(plain {pms:.2f} ms); {B} blocks, {int(n.sum())} list "
+            f"entries, {flagged} (chunk, cluster) visits listed; the "
+            f"kernel's {'warps' if rc.stream else 'blocks'} reached "
+            f"{reached} listed visits ({reached / units:.2f} per "
+            f"{'warp' if rc.stream else 'chunk'}) and tested {tested} "
+            f"({tested / units:.2f}) after the box cull, and {tris} "
+            f"triangles ({tris / units:.1f}) "
+            f"{'after the sub-box cull' if rc.stream else 'in those'}; bound "
+            f"{max(t_ops, t_bytes):.4f} ms from the frame's needed work: "
+            f"{slabs_c} slab tests of the boxes and sub-boxes entered nearer "
+            f"than the final depth ({slabs_c / R:.2f} per ray) and {tris_c} "
+            f"triangle tests ({tris_c / R:.2f} per ray), {used_c} clusters "
+            f"and {used_s} sub-boxes entered by some ray "
+            f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); the "
+            f"kernel's tested triangles x {lanes} lanes would bound it at "
+            f"{visit_ops / FP32_FLOP_PER_S * 1e3:.4f} ms")
 
         # -- 6. the path's stage times for this configuration --------------
         grid = bunny if name == "bunny" else sphere_dev
@@ -716,31 +850,32 @@ def main() -> int:
             bvh, op, dp, rc.max_dist, rc.stream), iters=5)
         t_cast = event_ms(lambda: rc.cast(o, d), iters=10)
         stage[name] = dict(mc_ms=t_mc, build_ms=t_build, prep_ms=t_prep,
-                           kernel_ms=ms, cast_ms=t_cast,
+                           cull_ms=cms, kernel_ms=ms, cast_ms=t_cast,
                            mrays_per_s=R / (t_cast * 1e3), rays=R)
         log(f"path {name}: MC {t_mc:.3f} ms, cluster build {t_build:.3f} "
-            f"ms, prep {t_prep:.3f} ms, kernel {ms:.3f} ms, cast "
-            f"{t_cast:.3f} ms = {R / (t_cast * 1e3):.2f} Mrays/s")
+            f"ms, prep {t_prep:.3f} ms (the cull kernel {cms:.4f} of it), "
+            f"kernel {ms:.3f} ms, cast {t_cast:.3f} ms = "
+            f"{R / (t_cast * 1e3):.2f} Mrays/s")
+    kernels.append(cull_rows["flagship"])
 
     # the stream cast on the flagship step's own inputs: 3,328
     # identity-order clusters of the soup, whose padding rows are point
     # triangles; the winners' fin rows are the forward depth's planes
-    sargs = stream_args[0]
-    dk, ik, fk = rk.cluster_cast_stream(*sargs)
-    dpl, ipl, fpl = rk.cluster_cast_plain(*sargs)
-    same = ik == ipl
-    agree = float(same.float().mean())
-    check(agree >= 0.9999, f"{rk.STREAM.name} (training): sidx agrees on "
-          f"{agree}")
-    check(torch.equal(dk[same], dpl[same])
-          and torch.equal(fk[same], fpl[same]),
-          f"{rk.STREAM.name} (training): depth or fin rows differ")
-    err = float((dk - dpl).abs().max())
-    entry = next(k for k in kernels if k["name"] == rk.STREAM.name)
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    log(f"{rk.STREAM.name} (training step's inputs): {sargs[0].shape[0]} "
-        f"blocks, {sargs[3].shape[0]} clusters; sidx agree {agree:.6f}, "
-        f"depth and fin rows equal where it agrees, raw depth max err {err}")
+    sargs, skw = stream_args[0]
+    n_t, e_t, b_t = sargs[:3]
+    check(same_lists((n_t, e_t, b_t), rk.work_lists_plain(
+        skw["boxes"], sargs[5], sargs[6], True)),
+        "stream_cull (training): the step's lists differ from the plain "
+        "version's")
+    got = rk.cluster_cast_stream(*sargs, **skw)
+    nset = exact_cast(f"{rk.STREAM.name} (training)", got,
+                      rk.cluster_cast_plain(*sargs),
+                      (n_t, e_t, sargs[3], sargs[5], sargs[6], sargs[7]))
+    log(f"{rk.STREAM.name} (training step's inputs): {n_t.shape[0]} "
+        f"blocks, {sargs[3].shape[0]} clusters; the lists equal the plain "
+        f"cull's and depth, index and finish rows equal the plain cast's on "
+        f"all {sargs[5].shape[1]} rays"
+        f"{f' but the {nset} settled above' if nset else ''}")
 
     # the plane scatter on the flagship backward's own inputs
     args = scatter_args[0]

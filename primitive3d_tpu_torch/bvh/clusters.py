@@ -159,13 +159,16 @@ class MxuClusterBVH(NamedTuple):
     denominator d.n is ``s0 + s1 + s2`` exactly (a x b + b x c + c x a = n),
     so the kernel needs no fourth product. Degenerate triangles have all-zero
     rows. ``fin[c, j]`` is the finish row ``[n, a.n, 1/|n|, fid, 0, 0]``;
-    padding slots carry ``fid = -1``.
+    padding slots carry ``fid = -1``. ``sub_boxes[c, k]`` bounds slots
+    ``k * S / K .. (k + 1) * S / K - 1``, K = max(1, S / SUB_SIZE): the
+    stream kernel's second cull.
     """
 
     boxes: Tensor  # (C, 6) float32 cluster AABBs
     w: Tensor  # (C, S, 24) float32 Plücker rows
     prim_order: Tensor  # (C*S,) int32; -1 for padding slots
     fin: Tensor  # (C, S, 8) float32 finish rows
+    sub_boxes: Tensor  # (C, max(1, S / SUB_SIZE), 6) float32
 
     @property
     def num_clusters(self) -> int:
@@ -208,8 +211,9 @@ def build_mxu_clusters(tris: Tensor, cluster_size: int = CLUSTER_SIZE,
     fid = base.prim_order.reshape(C, S).to(torch.float32)
     fin = torch.cat([n, an[..., None], inv[..., None], fid[..., None], z2],
                     dim=-1)  # (C, S, 8)
+    sub = base.sub_boxes if S >= SUB_SIZE else base.boxes[:, None]
     return MxuClusterBVH(base.boxes, w.contiguous(), base.prim_order,
-                         fin.contiguous())
+                         fin.contiguous(), sub.contiguous())
 
 
 def _put(x, dtype, dev: torch.device) -> Tensor:
@@ -237,7 +241,8 @@ def from_jax_clusters(boxes, w2, prim_order, fin,
     ``prim_order`` (C*S,) and ``fin`` (C, 24, S) stacked ``[f1; f2; f3]``
     bf16, as numpy arrays. Sets ``w = f32(wh) + f32(wl)`` rearranged into
     the port's rows and ``fin = f1 + f2 + f3``, so one cluster structure can
-    feed both casters.
+    feed both casters. The JAX structure keeps no vertices, so every
+    sub-box is its cluster's box.
     """
     dev = resolve_device(device)
     w2 = np.asarray(w2).astype(np.float32)
@@ -249,7 +254,9 @@ def from_jax_clusters(boxes, w2, prim_order, fin,
     rows[:, 18:22] = w[:, 6:10, 3]  # numerator column: [o, 1] = rows 6..9
     f = np.asarray(fin).astype(np.float32)
     fin8 = f[:, 0:8] + f[:, 8:16] + f[:, 16:24]  # (C, 8, S)
-    return MxuClusterBVH(_put(boxes, np.float32, dev),
-                         _put(rows.transpose(0, 2, 1), np.float32, dev),
+    bx = _put(boxes, np.float32, dev)
+    nsub = max(1, S // SUB_SIZE)
+    return MxuClusterBVH(bx, _put(rows.transpose(0, 2, 1), np.float32, dev),
                          _put(prim_order, np.int32, dev),
-                         _put(fin8.transpose(0, 2, 1), np.float32, dev))
+                         _put(fin8.transpose(0, 2, 1), np.float32, dev),
+                         bx[:, None].expand(C, nsub, 6).contiguous())

@@ -5,9 +5,7 @@
     res = marching_cubes_padded(grid, 0.0, config=cfg.marching_cubes)
 
 Explicit keyword arguments always override config fields. Counterpart of
-``primitive3d_tpu/core/config.py``, with the same defaults; the JAX
-package's obsolete compaction budgets (``vert_units``, ``cube_units``) are
-left out.
+``primitive3d_tpu/core/config.py``, with the same fields and defaults.
 """
 from __future__ import annotations
 
@@ -38,6 +36,10 @@ class MarchingCubesConfig:
     # fixed-shape pipelines
     vert_capacity: Optional[int] = None
     face_capacity: Optional[int] = None
+    # the JAX package's compaction unit budgets: accepted and unused, as
+    # there (its selection is exact and needs none)
+    vert_units: int = 0
+    cube_units: int = 0
     active_capacity: int = 0  # active-cube budget (0 = face_capacity)
 
 

@@ -7,7 +7,9 @@ Counterpart of the cluster caster of
 ``cast_clusters_mxu``). Rays go in blocks of MBLOCK = 2048, each cut into
 NCH = 8 chunks of RCHUNK = 256 rays. The prep culls every chunk's ray
 interval against every cluster box and writes the same work lists as the
-JAX package:
+JAX package, through the cull kernel ``stream_cull``
+(``csrc/stream_cull.cu``, plain version ``work_lists_plain``), which has no
+Pallas counterpart: the JAX package builds the lists in plain XLA.
 
   * resident tier: per block, the flagged (cluster, chunk) pairs
     ``(c << 3) | r`` compacted to the front in cluster-major order;
@@ -16,9 +18,13 @@ JAX package:
     with the sorted bounds beside it.
 
 Two kernels consume them, each with its wrapper and launch count:
-``cluster_cast_resident`` and ``cluster_cast_stream``. A wrapper launches
-its kernel for CUDA tensors and runs ``cluster_cast_plain`` for CPU
-tensors; there is no fallback between the two.
+``cluster_cast_resident`` (a block per chunk) and ``cluster_cast_stream``
+(a warp per 32 rays, walking the list on its own with a box and a
+sub-box cull per cluster and an early exit per warp). A wrapper launches
+its kernel for CUDA tensors and runs the plain version for CPU tensors
+(``cluster_cast_plain`` for both casts, which visits every listed
+cluster); there is no fallback between the two. ``stream_disputes``
+settles the rays where the stream kernel's exit is not exact.
 
 Past STREAM_MAX_CLUSTERS clusters (the stream word's 15-bit cluster id)
 the casters take the scalar tier, ``cast_clusters`` (the JAX function of
@@ -74,7 +80,16 @@ RESIDENT = _build.Kernel(
 STREAM = _build.Kernel(
     "cluster_cast_stream", "cluster_cast.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:372",
-    argtypes=_CAST_ARGS[:1] + [ctypes.c_void_p] + _CAST_ARGS[1:])
+    argtypes=(_CAST_ARGS[:1] + [ctypes.c_void_p] + _CAST_ARGS[1:3]
+              + [ctypes.c_void_p] * 2 + [ctypes.c_float] + _CAST_ARGS[3:]))
+STREAM_WALK = 32  # rays per independent walk of the stream kernel (a warp)
+# the stream kernel's box cull widens each box by this share of |o|_1 + the
+# box's largest coordinate (a launch argument of csrc/cluster_cast.cu)
+CULL_WIDEN = 2.0 ** -14
+# a float32 t that a float64 evaluation of the same test does not confirm
+# to this share, or whose test fails in float64, is rounding noise
+NOISE_REL = 2.0 ** -12
+_DISPUTES_MAX = 4096  # differing rays stream_disputes examines at most
 
 
 # --- prep: ray intervals, interval cull, work lists --------------------------
@@ -118,7 +133,10 @@ def _interval_cull(boxes: Tensor, rint: Tensor, max_dist: float
         tl = nr if tl is None else torch.maximum(tl, nr)
         th = fr if th is None else torch.minimum(th, fr)
     ok = (tl <= th) & (th >= 0.0) & (tl < max_dist)
-    return ok, torch.clamp(tl, min=0.0)
+    # max(tl, 0), a zero always +0.0: torch.clamp(-0.0, min=0) and amin
+    # over -0.0 and +0.0 leave the sign of a zero to the implementation,
+    # and the stream bounds are compared bit for bit across devices
+    return ok, torch.where(tl > 0.0, tl, 0.0)
 
 
 def _culled(boxes: Tensor, rint: Tensor, max_dist: float):
@@ -176,35 +194,107 @@ def _resident_pairs(boxes: Tensor, rint: Tensor, max_dist: float
     return n, pairs
 
 
+def work_lists_plain(boxes: Tensor, rays: Tensor, max_dist: float,
+                     stream: bool):
+    """Plain version of the cull kernel: ``(n, work, bounds)`` of the
+    rays ``rays`` (9, Rp) = [d; o x d; o] against the cluster boxes (C, 6),
+    as :func:`work_lists` returns them."""
+    B = rays.shape[1] // MBLOCK
+    rint = _ray_intervals(rays[6:9].T, rays[0:3].T, B)
+    if stream:
+        return _stream_entries(boxes, rint, max_dist)
+    n, pairs = _resident_pairs(boxes, rint, max_dist)
+    return n, pairs, None
+
+
+CULL = _build.Kernel(
+    "stream_cull", "stream_cull.cu",
+    replaces="primitive3d_tpu/kernels/raycast_kernel.py:801,840,856,889",
+    argtypes=[ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+def work_lists(boxes: Tensor, rays: Tensor, max_dist: float, stream: bool):
+    """The cast kernels' work lists: ``(n, work, bounds)``.
+
+    ``rays`` (9, Rp) float32 = [d; o x d; o] with Rp a multiple of MBLOCK,
+    ``boxes`` (C, 6) float32. Per block of MBLOCK rays: ``n`` (B,) int32
+    list lengths; stream tier, ``work`` (B, C) int32 words ``(c << 16) |
+    chunk mask``, the flagged clusters sorted by their entry bound, ties in
+    index order, then the rest in index order, and ``bounds`` (B, C)
+    float32 beside them (3e38 past n); resident tier, ``work`` (B, 8 C)
+    int32 pairs ``(c << 3) | chunk``, flagged ones first in cluster-major
+    order, then the rest, and ``bounds`` None. Launches
+    ``csrc/stream_cull.cu`` for CUDA tensors and runs
+    :func:`work_lists_plain` for CPU tensors.
+    """
+    if rays.dim() != 2 or rays.shape[0] != 9 or rays.shape[1] % MBLOCK \
+            or rays.shape[1] == 0 or rays.dtype != torch.float32:
+        raise ValueError(f"rays must be (9, Rp) float32 with Rp a positive "
+                         f"multiple of {MBLOCK}")
+    if boxes.dim() != 2 or boxes.shape[1] != 6 or boxes.shape[0] < 1 \
+            or boxes.dtype != torch.float32:
+        raise ValueError("boxes must be (C, 6) float32 with C >= 1")
+    if boxes.device != rays.device:
+        raise ValueError("boxes and rays must be on one device")
+    C = boxes.shape[0]
+    if stream and C > STREAM_MAX_CLUSTERS:
+        raise ValueError(f"stream tier supports at most "
+                         f"{STREAM_MAX_CLUSTERS} clusters, got {C}")
+    if rays.device.type == "cpu":
+        return work_lists_plain(boxes, rays, max_dist, stream)
+    if rays.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays.device}")
+    if not (boxes.is_contiguous() and rays.is_contiguous()):
+        raise ValueError("boxes and rays must be contiguous")
+    Rp = rays.shape[1]
+    B = Rp // MBLOCK
+    dev = rays.device
+    n = torch.empty((B,), dtype=torch.int32, device=dev)
+    work = torch.empty((B, C if stream else C * NCH), dtype=torch.int32,
+                       device=dev)
+    bounds = (torch.empty((B, C), dtype=torch.float32, device=dev)
+              if stream else None)
+    with torch.cuda.device(dev):
+        CULL.launch(rays.data_ptr(), Rp, B, boxes.data_ptr(), C,
+                    float(max_dist), int(bool(stream)), n.data_ptr(),
+                    work.data_ptr(),
+                    bounds.data_ptr() if stream else None)
+    return n, work, bounds
+
+
+def _ray_rows(o: Tensor, d: Tensor, Rp: int) -> Tensor:
+    """The cast kernels' ray rows (9, Rp) = [d; o x d; o] of rays
+    ``o``/``d`` (R, 3), padded to Rp with o = 0, d = 1, written in place."""
+    R = o.shape[0]
+    rays = torch.empty((9, Rp), dtype=torch.float32, device=o.device)
+    rays[0:3, :R] = d.T
+    rays[0:3, R:] = 1.0
+    rays[6:9, :R] = o.T
+    rays[6:9, R:] = 0.0
+    torch.linalg.cross(rays[6:9], rays[0:3], dim=0, out=rays[3:6])
+    return rays
+
+
 def _mxu_prep(bvh, o: Tensor, d: Tensor, max_dist: float, stream: bool):
     """Work lists and ray rows for the cast kernels.
 
-    ``o``/``d`` are padded to a multiple of MBLOCK. Returns
-    ``(n, work, bounds, rays)``: per-block list lengths (B,) int32, the work
-    list (B, L) int32, the stream bounds (B, L) float32 (None for the
-    resident tier) and the ray rows (9, Rp) = [d; o x d; o].
+    ``o``/``d`` (R, 3) are padded to Rp, the next multiple of MBLOCK, with
+    o = 0, d = 1. Returns ``(n, work, bounds, rays)``: the lists of
+    :func:`work_lists` and the ray rows (9, Rp) = [d; o x d; o].
     """
-    B = o.shape[0] // MBLOCK
-    m = torch.linalg.cross(o, d, dim=-1)
-    rays = torch.cat([d, m, o], dim=1).T.contiguous()
-    rint = _ray_intervals(o, d, B)
-    if stream:
-        n, entries, sbound = _stream_entries(bvh.boxes, rint, max_dist)
-        return n, entries, sbound, rays
-    n, pairs = _resident_pairs(bvh.boxes, rint, max_dist)
-    return n, pairs, None, rays
+    rays = _ray_rows(o, d, o.shape[0] + (-o.shape[0]) % MBLOCK)
+    n, work, bounds = work_lists(bvh.boxes, rays, max_dist, stream)
+    return n, work, bounds, rays
 
 
 # --- the cast: plain version ------------------------------------------------
 
-def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
-    """Packed min keys (V, RCHUNK) of V visits.
-
-    W (V, S, 24) cluster rows, R (9, V, RCHUNK) ray rows. The same
-    arithmetic, in the same order, as csrc/cluster_cast.cu.
+def _triangle_tests(W: Tensor, R: Tensor, edge_wildcard: bool
+                    ) -> Tuple[Tensor, Tensor]:
+    """(sign test passed, t), each (V, S, RCHUNK), of V visits in the
+    dtype of W and R: W (V, S, 24) cluster rows, R (9, V, RCHUNK) ray rows.
+    In float32 the arithmetic, in the same order, of csrc/cluster_cast.cu.
     """
-    S = W.shape[1]
-    im = S - 1
     dx, dy, dz, mx, my, mz, ox, oy, oz = (R[k][:, None, :] for k in range(9))
     u = [W[..., k, None] for k in range(22)]  # (V, S, 1) each
     s0 = u[0] * dx + u[1] * dy + u[2] * dz + u[3] * mx + u[4] * my + u[5] * mz
@@ -213,9 +303,10 @@ def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
     s2 = (u[12] * dx + u[13] * dy + u[14] * dz + u[15] * mx + u[16] * my
           + u[17] * mz)
     num = u[18] * ox + u[19] * oy + u[20] * oz + u[21]
-    b0, b1, b2, b3 = (x.view(torch.int32) for x in (s0, s1, s2, num))
+    bits = torch.int32 if s0.dtype == torch.float32 else torch.int64
+    b0, b1, b2, b3 = (x.view(bits) for x in (s0, s1, s2, num))
     if edge_wildcard:
-        nz = [(x & 0x7FFFFFFF) != 0 for x in (b0, b1, b2, b3)]
+        nz = [x != 0.0 for x in (s0, s1, s2, num)]
         bs = (b0, b1, b2, b3)
         bad = torch.zeros_like(nz[0])
         for i in range(4):
@@ -224,7 +315,14 @@ def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
         ok = ~bad
     else:
         ok = ((b0 ^ b1) | (b0 ^ b2) | (b0 ^ b3)) >= 0
-    t = num / ((s0 + s1) + s2)
+    return ok, num / ((s0 + s1) + s2)
+
+
+def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
+    """Packed min keys (V, RCHUNK) of V visits (see :func:`_triangle_tests`)."""
+    S = W.shape[1]
+    im = S - 1
+    ok, t = _triangle_tests(W, R, edge_wildcard)
     tm = torch.abs(torch.where(ok, t, 3.0e38))
     slot = torch.arange(S, dtype=torch.int32, device=W.device)[:, None]
     return ((tm.view(torch.int32) & ~im) | slot).amin(dim=1)
@@ -239,8 +337,12 @@ def cluster_cast_plain(n: Tensor, work: Tensor, bounds: Optional[Tensor],
     for the stream tier (entries). Per visit the packed min over the S
     triangles comes first; then, per ray, the smallest quantised t below
     max_dist wins, the first visit in list order on equal t (an int64 key
-    ``t_bits << 32 | entry << 8 | slot`` and an amin). The stream kernel's
-    early exit is exact, so this version visits everything.
+    ``t_bits << 32 | entry << 8 | slot`` and an amin). This version visits
+    every listed cluster. The stream kernel skips clusters by its culls and
+    its early exit, which drop no hit whose t lies inside its own box
+    (``tests/test_torch_stream.py``); a sliver triangle's t, whose
+    side-product sum is rounding noise, can lie far outside it, and on such
+    a ray the kernel may keep a farther hit than this version.
     """
     stream = bounds is not None
     dev = rays.device
@@ -287,7 +389,88 @@ def cluster_cast_plain(n: Tensor, work: Tensor, bounds: Optional[Tensor],
 
 # --- the cast: kernel wrappers -----------------------------------------------
 
-def _check_cast_inputs(n, work, bounds, w, fin, rays):
+def _stream_box_enters(boxes: Tensor, o: Tensor, d: Tensor) -> Tensor:
+    """The stream kernel's box and sub-box cull in plain PyTorch, in its
+    order of operations: does the ray ``o``/``d`` (..., 3) enter the box
+    ``boxes`` (..., 6), widened by 2^-14 of (|o|_1 + the box's largest
+    coordinate), ahead of its origin? All broadcast together -> (...) bool.
+    A NaN slab is the whole line. The plain cast does not use it; the tests
+    hold each ray's winning cluster and sub-box to it, which is what lets
+    the kernel skip the others."""
+    span = (o[..., 0].abs() + o[..., 1].abs()) + o[..., 2].abs()
+    tol = (span + boxes.abs().amax(dim=-1)) * CULL_WIDEN
+    inv = torch.reciprocal(d)
+    return _slab([boxes[..., a] - tol for a in range(3)],
+                 [boxes[..., a + 3] + tol for a in range(3)],
+                 [o[..., a] for a in range(3)],
+                 [inv[..., a] for a in range(3)])[1]
+
+
+def stream_disputes(n: Tensor, entries: Tensor, w: Tensor, rays: Tensor,
+                    max_dist: float, edge_wildcard: bool, got, want):
+    """The rays on which a stream cast ``got`` = (depth, idx, ...) differs
+    from the plain version's ``want``, each settled or not by a float64
+    witness -> (rays (Q,) int64, settled (Q,) bool, clean t (Q,)).
+
+    The stream kernel visits a subset of the listed clusters (its culls and
+    early exit), so it may keep a farther hit than the plain version only
+    where the plain version's winner lies in front of its own box. A ray
+    is settled when (1) the plain t <= the kernel's t <= the clean t, the
+    nearest float32 hit over the ray's listed clusters that is not noise;
+    (2) the plain version's winning test is noise: it fails in float64 on
+    the same rows, or its float64 t differs from its float32 t by more
+    than NOISE_REL; (3) the kernel's (t, idx) is the float32 test of that
+    ray with that triangle, and its cluster is listed (or a miss). Past
+    _DISPUTES_MAX differing rays none is settled: that is no rounding
+    matter.
+    """
+    dev = rays.device
+    S = w.shape[1]
+    im = S - 1
+    dk, ik = got[0], got[1]
+    dp, ip = want[0], want[1]
+    bad = ((dk.view(torch.int32) != dp.view(torch.int32)) | (ik != ip))
+    qs = bad.nonzero()[:, 0]
+    settled = torch.zeros(qs.shape[0], dtype=torch.bool, device=dev)
+    clean = torch.full((qs.shape[0],), float(max_dist), device=dev)
+    if qs.shape[0] > _DISPUTES_MAX:
+        return qs, settled, clean
+    L = entries.shape[1]
+    for j, q in enumerate(qs.tolist()):
+        b, r = q // MBLOCK, (q % MBLOCK) // RCHUNK
+        listed = (((entries[b] >> r) & 1).bool()
+                  & (torch.arange(L, device=dev) < n[b]))
+        c = (entries[b][listed] >> 16).to(torch.int64)  # in list order
+        ray = rays[:, q].reshape(9, 1, 1)
+        ok, t = _triangle_tests(w[c], ray, edge_wildcard)
+        tm = torch.abs(torch.where(ok, t, 3.0e38))[..., 0]  # (Lq, S)
+        tq = (tm.view(torch.int32) & ~im).view(torch.float32)
+        ok64, t64 = _triangle_tests(w[c].double(), ray.double(),
+                                    edge_wildcard)
+        ok64, t64 = ok64[..., 0], t64[..., 0].abs()
+        hit = tq < max_dist
+        noise = hit & ~(ok64 & ((t64 - tm.double()).abs()
+                                <= NOISE_REL * t64))
+        real = hit & ~noise
+        if bool(real.any()):
+            clean[j] = tq[real].min()
+        tp, tk = float(dp[q]), float(dk[q])
+        ck, cp = int(ik[q]) // S, int(ip[q]) // S
+        if int(ip[q]) < 0 or not bool((c == cp).any()):
+            continue
+        p_noise = bool(noise[(c == cp).nonzero()[0, 0], int(ip[q]) % S])
+        if int(ik[q]) < 0:
+            k_ok = tk == float(max_dist)
+        else:
+            at = (c == ck).nonzero()
+            k_ok = (at.shape[0] > 0 and tq[at[0, 0], int(ik[q]) % S]
+                    .view(torch.int32) == dk[q].view(torch.int32))
+        settled[j] = (tp <= tk <= float(clean[j])) and p_noise and bool(k_ok)
+    return qs, settled, clean
+
+
+def _check_cast_inputs(n, work, bounds, w, fin, rays, boxes=None,
+                       sub_boxes=None):
     if w.dim() != 3 or w.shape[2] != WROW or w.dtype != torch.float32:
         raise ValueError(f"w must be (C, S, {WROW}) float32, got "
                          f"{w.dtype} {tuple(w.shape)}")
@@ -307,7 +490,14 @@ def _check_cast_inputs(n, work, bounds, w, fin, rays):
     if bounds is not None and (bounds.shape != work.shape
                                or bounds.dtype != torch.float32):
         raise ValueError("bounds must match the entries, float32")
-    for t in (n, work, bounds, w, fin, rays):
+    if boxes is not None and (tuple(boxes.shape) != (C, 6)
+                              or boxes.dtype != torch.float32):
+        raise ValueError(f"boxes must be ({C}, 6) float32")
+    nsub = max(1, S // SUB_SIZE)
+    if sub_boxes is not None and (tuple(sub_boxes.shape) != (C, nsub, 6)
+                                  or sub_boxes.dtype != torch.float32):
+        raise ValueError(f"sub_boxes must be ({C}, {nsub}, 6) float32")
+    for t in (n, work, bounds, w, fin, rays, boxes, sub_boxes):
         if t is None:
             continue
         if t.device != rays.device:
@@ -317,9 +507,9 @@ def _check_cast_inputs(n, work, bounds, w, fin, rays):
                              "aligned")
 
 
-def _cast(kernel, n, work, bounds, w, fin, rays, max_dist, edge_wildcard,
-          with_fin, visits):
-    _check_cast_inputs(n, work, bounds, w, fin, rays)
+def _cast(kernel, n, work, bounds, boxes, sub_boxes, w, fin, rays,
+          max_dist, edge_wildcard, with_fin, visits):
+    _check_cast_inputs(n, work, bounds, w, fin, rays, boxes, sub_boxes)
     if rays.device.type == "cpu":
         return cluster_cast_plain(n, work, bounds, w, fin, rays, max_dist,
                                   edge_wildcard, with_fin)
@@ -332,16 +522,18 @@ def _cast(kernel, n, work, bounds, w, fin, rays, max_dist, edge_wildcard,
     idx = torch.empty((Rp,), dtype=torch.int32, device=dev)
     finr = (torch.empty((Rp, 8), dtype=torch.float32, device=dev)
             if with_fin else None)
-    if visits is not None and (tuple(visits.shape) != (B * NCH,)
+    vshape = (B * NCH,) if bounds is None else (B * NCH, 3)
+    if visits is not None and (tuple(visits.shape) != vshape
                                or visits.dtype != torch.int32
                                or visits.device != dev):
-        raise ValueError(f"visits must be ({B * NCH},) int32 on {dev}")
-    head = [work.data_ptr()]
+        raise ValueError(f"visits must be {vshape} int32 on {dev}")
+    lists = [work.data_ptr(), n.data_ptr(), work.shape[1]]
     if bounds is not None:
-        head.append(bounds.data_ptr())
+        lists[1:1] = [bounds.data_ptr()]
+        lists += [boxes.data_ptr(), sub_boxes.data_ptr(), CULL_WIDEN]
     with torch.cuda.device(dev):
         kernel.launch(
-            *head, n.data_ptr(), work.shape[1], w.data_ptr(),
+            *lists, w.data_ptr(),
             fin.data_ptr(), rays.data_ptr(), Rp, B, w.shape[1],
             float(max_dist), int(bool(edge_wildcard)), depth.data_ptr(),
             idx.data_ptr(), finr.data_ptr() if with_fin else None,
@@ -357,17 +549,25 @@ def cluster_cast_resident(n: Tensor, pairs: Tensor, w: Tensor, fin: Tensor,
 
     ``visits`` (B * NCH,) int32, if given, receives each chunk's visit count
     (kernel only)."""
-    return _cast(RESIDENT, n, pairs, None, w, fin, rays, max_dist,
-                 edge_wildcard, with_fin, visits)
+    return _cast(RESIDENT, n, pairs, None, None, None, w, fin, rays,
+                 max_dist, edge_wildcard, with_fin, visits)
 
 
 def cluster_cast_stream(n: Tensor, entries: Tensor, bounds: Tensor,
                         w: Tensor, fin: Tensor, rays: Tensor, max_dist: float,
                         edge_wildcard: bool = False, with_fin: bool = True,
-                        visits: Optional[Tensor] = None):
-    """Stream-tier cast, same outputs as :func:`cluster_cast_resident`."""
-    return _cast(STREAM, n, entries, bounds, w, fin, rays, max_dist,
-                 edge_wildcard, with_fin, visits)
+                        visits: Optional[Tensor] = None, *, boxes: Tensor,
+                        sub_boxes: Tensor):
+    """Stream-tier cast, same outputs as :func:`cluster_cast_resident`.
+
+    ``boxes`` (C, 6) and ``sub_boxes`` (C, max(1, S / SUB_SIZE), 6) are the
+    cluster boxes and sub-boxes, which the kernel's per-warp culls read (the
+    plain version visits every listed cluster). ``visits`` (B * NCH, 3)
+    int32, if given, zeroed, receives per chunk, summed over its walks of
+    STREAM_WALK rays, the list entries they reached, the clusters and the
+    sub-boxes they tested (kernel only)."""
+    return _cast(STREAM, n, entries, bounds, boxes, sub_boxes, w, fin, rays,
+                 max_dist, edge_wildcard, with_fin, visits)
 
 
 def _cast_with_list(bvh, origins: Tensor, dirs: Tensor, max_dist: float,
@@ -380,17 +580,12 @@ def _cast_with_list(bvh, origins: Tensor, dirs: Tensor, max_dist: float,
             f"stream tier supports at most {STREAM_MAX_CLUSTERS} clusters, "
             f"got {bvh.num_clusters}; raise cluster_size")
     R = origins.shape[0]
-    pad = (-R) % MBLOCK
-    dev = origins.device
-    o = torch.cat([origins, torch.zeros((pad, 3), dtype=torch.float32,
-                                        device=dev)])
-    d = torch.cat([dirs, torch.ones((pad, 3), dtype=torch.float32,
-                                    device=dev)])
-    n, work, bounds, rays = _mxu_prep(bvh, o, d, float(max_dist), stream)
+    n, work, bounds, rays = _mxu_prep(bvh, origins, dirs, float(max_dist),
+                                      stream)
     if stream:
         depth, idx, finr = cluster_cast_stream(
             n, work, bounds, bvh.w, bvh.fin, rays, max_dist, edge_wildcard,
-            with_fin)
+            with_fin, boxes=bvh.boxes, sub_boxes=bvh.sub_boxes)
     else:
         depth, idx, finr = cluster_cast_resident(
             n, work, bvh.w, bvh.fin, rays, max_dist, edge_wildcard, with_fin)

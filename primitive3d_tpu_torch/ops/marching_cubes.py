@@ -18,7 +18,12 @@ The TPU-shaped scans and decoders of the JAX package (``_excl_cumsum_flat``,
 a table gather, a scatter of each selected element to its scan slot, and
 ``torch.searchsorted``. None of them syncs with the host: the eager
 ``marching_cubes`` reads the counts back once, as the JAX package does.
-Indices are int64 (a 256^3 grid has ~50M edges); faces come out int32.
+Indices are int64 (a 256^3 grid has ~50M edges); faces and the returned
+counts come out int32, as in the JAX package.
+
+``thresh`` may be a Python float or a 0-d tensor. The mask pass takes its
+value (one host read for a tensor on the card); the position math keeps the
+tensor, so autograd gives its gradient, as the JAX package's VJPs do.
 
 The mask pass is ``kernels.mc_masks.fused_masks``: the CUDA kernel on the
 card, its plain version on the CPU.
@@ -26,7 +31,7 @@ card, its plain version on the CPU.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -37,6 +42,7 @@ from ..kernels.mc_masks import fused_masks
 from . import mc_tables as T
 
 Tensor = torch.Tensor
+ThreshLike = Union[float, Tensor]  # a Python float or a 0-d tensor
 MAX_TRIS_PER_CUBE = T.MAX_TRIS_PER_CUBE
 
 
@@ -58,8 +64,8 @@ class MCResult(NamedTuple):
 
     vertices: Tensor  # (vert_capacity, 3) float32
     faces: Tensor  # (face_capacity, 3) int32
-    num_vertices: Tensor  # () int64 (true count, may exceed capacity)
-    num_faces: Tensor  # () int64
+    num_vertices: Tensor  # () int32 (true count, may exceed capacity)
+    num_faces: Tensor  # () int32
     unit_overflow: Tensor  # () bool: the active-cube budget ran out
 
     @property
@@ -117,7 +123,24 @@ def _decode_edge(src: Tensor, shape):
     return is_x, is_y, is_z, i, j, k, p0, p1
 
 
-def _selected_positions(density: Tensor, thresh: float, src: Tensor,
+def _mask_thresh(thresh) -> float:
+    """The value of a float or 0-d tensor ``thresh`` for the mask pass."""
+    return float(thresh.detach()) if isinstance(thresh, Tensor) else float(
+        thresh)
+
+
+def _thresh_arg(thresh, device: torch.device):
+    """``thresh`` for the position math: a float stays a float; a tensor
+    goes to ``device`` as a 0-d float32 tensor that keeps its gradient."""
+    if not isinstance(thresh, Tensor):
+        return float(thresh)
+    if thresh.numel() != 1:
+        raise ValueError(f"thresh must be a scalar, got shape "
+                         f"{tuple(thresh.shape)}")
+    return thresh.reshape(()).to(device=device, dtype=torch.float32)
+
+
+def _selected_positions(density: Tensor, thresh, src: Tensor,
                         valid: Tensor, scale: Tensor, lower: Tensor
                         ) -> Tensor:
     """World positions (3, capacity) of the selected crossing edges.
@@ -125,7 +148,9 @@ def _selected_positions(density: Tensor, thresh: float, src: Tensor,
     The forward formula of ``_selected_positions_fwd`` in the JAX package:
     decode the edge id, gather its two density samples, interpolate with
     ``dt = clip((thresh - d0) / (d1 - d0), 0, 1)`` (a zero denominator
-    divides by 1 instead).
+    divides by 1 instead). ``clamp`` passes the whole gradient at a bound,
+    as the JAX package's hand-written VJP does, to the density and to a
+    tensor ``thresh`` alike.
     """
     is_x, is_y, is_z, i, j, k, p0, p1 = _decode_edge(src, density.shape)
     dflat = density.reshape(-1)
@@ -142,9 +167,9 @@ def _selected_positions(density: Tensor, thresh: float, src: Tensor,
     return torch.where(valid[None, :], out, torch.zeros_like(out))
 
 
-def _counts(density: Tensor, thresh: float) -> Tuple[Tensor, Tensor, Tensor]:
+def _counts(density: Tensor, thresh) -> Tuple[Tensor, Tensor, Tensor]:
     """(num_vertices, num_faces, active cubes) as 0-d int64 tensors."""
-    cx, cy, cz, cm = fused_masks(density, thresh)
+    cx, cy, cz, cm = fused_masks(density, _mask_thresh(thresh))
     num_tris, _ = _tables(density.device)
     nv = (cx.sum(dtype=torch.int64) + cy.sum(dtype=torch.int64)
           + cz.sum(dtype=torch.int64))
@@ -201,13 +226,13 @@ def _cube_ijk(cube: Tensor, Y: int, Z: int):
     return cube // (CY * CZ), (cube // CZ) % CY, cube % CZ
 
 
-def _mc_padded_impl(density: Tensor, thresh: float, lower: Tensor,
+def _mc_padded_impl(density: Tensor, thresh, lower: Tensor,
                     upper: Tensor, vert_capacity: int, face_capacity: int,
                     active_capacity: int = 0) -> MCResult:
     X, Y, Z = density.shape
     dev = density.device
     _, packed_flat = _tables(dev)
-    cx, cy, cz, cmask = fused_masks(density.detach(), thresh)
+    cx, cy, cz, cmask = fused_masks(density.detach(), _mask_thresh(thresh))
 
     # --- vertices: select the crossing edges, then positions -------------
     # ONE exclusive scan over the concatenated crossing mask is the global
@@ -246,7 +271,8 @@ def _mc_padded_impl(density: Tensor, thresh: float, lower: Tensor,
                            torch.where(ax == 1, Ex + fy, Ex + Ey + fz))
         fcols.append(torch.where(fs.valid_f, ids_all[gidx], 0))
     faces = torch.stack(fcols, dim=-1).to(torch.int32)
-    return MCResult(verts, faces, num_vertices, fs.num_faces, fs.a_ovf)
+    return MCResult(verts, faces, num_vertices.to(torch.int32),
+                    fs.num_faces.to(torch.int32), fs.a_ovf)
 
 
 # --- triangle soup: positions emitted at the face pass ----------------------
@@ -329,16 +355,16 @@ class MCSoupResult(NamedTuple):
     """
 
     soup: Tensor  # (face_capacity, 3, 3) float32
-    num_faces: Tensor  # () int64 (true count, may exceed capacity)
+    num_faces: Tensor  # () int32 (true count, may exceed capacity)
     active_overflow: Tensor  # () bool: the active-cube budget ran out
-    num_active: Tensor  # () int64 active cubes counted
+    num_active: Tensor  # () int32 active cubes counted
 
     @property
     def overflowed(self) -> Tensor:
         return (self.num_faces > self.soup.shape[0]) | self.active_overflow
 
 
-def _mc_soup_impl(density: Tensor, thresh: float, lower: Tensor,
+def _mc_soup_impl(density: Tensor, thresh, lower: Tensor,
                   upper: Tensor, face_capacity: int,
                   active_capacity: int = 0) -> MCSoupResult:
     """Triangle-soup marching cubes, differentiable with respect to density.
@@ -351,7 +377,7 @@ def _mc_soup_impl(density: Tensor, thresh: float, lower: Tensor,
     X, Y, Z = density.shape
     dev = density.device
     _, packed_flat = _tables(dev)
-    _, _, _, cmask = fused_masks(density.detach(), thresh)
+    _, _, _, cmask = fused_masks(density.detach(), _mask_thresh(thresh))
     scale = (upper - lower) / torch.tensor([X, Y, Z], dtype=torch.float32,
                                            device=dev)
     fs = _face_slots(cmask, face_capacity, active_capacity)
@@ -388,7 +414,8 @@ def _mc_soup_impl(density: Tensor, thresh: float, lower: Tensor,
              for a, c in enumerate((ci, cj, ck))], dim=-1)
         corners.append(torch.where(fs.valid_f[:, None], vtx, zero))
     soup = torch.stack(corners, dim=1)  # (Fc, 3, 3)
-    return MCSoupResult(soup, fs.num_faces, fs.a_ovf, fs.n_active)
+    return MCSoupResult(soup, fs.num_faces.to(torch.int32), fs.a_ovf,
+                        fs.n_active.to(torch.int32))
 
 
 def _density_tensor(density, device: torch.device) -> Tensor:
@@ -400,22 +427,25 @@ def _density_tensor(density, device: torch.device) -> Tensor:
     return d
 
 
-def marching_cubes_counts(density, thresh: float,
+def marching_cubes_counts(density, thresh: ThreshLike,
                           device: DeviceLike = "cuda") -> Tuple[Tensor, Tensor]:
-    """(num_vertices, num_faces) as 0-d tensors, without a host sync."""
+    """(num_vertices, num_faces) as 0-d int32 tensors, without a host sync
+    (but for the read of a tensor ``thresh`` on the card)."""
     dev = resolve_device(device)
-    nv, nf, _ = _counts(_density_tensor(density, dev), float(thresh))
-    return nv, nf
+    nv, nf, _ = _counts(_density_tensor(density, dev), thresh)
+    return nv.to(torch.int32), nf.to(torch.int32)
 
 
 def marching_cubes_padded(
     density,
-    thresh: float,
+    thresh: ThreshLike,
     *,
     vert_capacity: Optional[int] = None,
     face_capacity: Optional[int] = None,
     lower=None,
     upper=None,
+    vert_units: int = 0,
+    cube_units: int = 0,
     active_capacity: int = 0,
     config=None,
     device: DeviceLike = "cuda",
@@ -423,8 +453,11 @@ def marching_cubes_padded(
     """Marching cubes with fixed-capacity outputs and no host sync.
 
     Capacities may come from a :class:`core.config.MarchingCubesConfig` via
-    ``config``; explicit arguments override it.
+    ``config``; explicit arguments override it. ``vert_units`` and
+    ``cube_units`` are accepted and unused, as in the JAX package (its
+    selection has needed no unit budget since its round 5).
     """
+    del vert_units, cube_units
     if config is not None:
         if vert_capacity is None:
             vert_capacity = config.vert_capacity
@@ -440,7 +473,8 @@ def marching_cubes_padded(
     lo = as_tensor([0.0, 0.0, 0.0] if lower is None else lower,
                    torch.float32, dev)
     up = as_tensor([X, Y, Z] if upper is None else upper, torch.float32, dev)
-    res = _mc_padded_impl(d, float(thresh), lo, up, int(vert_capacity),
+    res = _mc_padded_impl(d, _thresh_arg(thresh, dev), lo, up,
+                          int(vert_capacity),
                           int(face_capacity), int(active_capacity))
     debug.check(
         ~res.overflowed,
@@ -453,7 +487,7 @@ def marching_cubes_padded(
 
 def marching_cubes_soup(
     density,
-    thresh: float,
+    thresh: ThreshLike,
     *,
     face_capacity: int,
     lower=None,
@@ -475,8 +509,8 @@ def marching_cubes_soup(
     lo = as_tensor([0.0, 0.0, 0.0] if lower is None else lower,
                    torch.float32, dev)
     up = as_tensor([X, Y, Z] if upper is None else upper, torch.float32, dev)
-    res = _mc_soup_impl(d, float(thresh), lo, up, int(face_capacity),
-                        int(active_capacity))
+    res = _mc_soup_impl(d, _thresh_arg(thresh, dev), lo, up,
+                        int(face_capacity), int(active_capacity))
     debug.check(res.num_faces <= face_capacity,
                 "marching_cubes_soup: face_capacity {c} overflowed "
                 "(counted {f} faces)", c=int(face_capacity), f=res.num_faces)
@@ -495,7 +529,7 @@ def _round_capacity(n: int) -> int:
 
 def marching_cubes(
     density,
-    thresh: float,
+    thresh: ThreshLike,
     scale: Optional[ScaleLike] = None,
     verbose: bool = False,
     cpu: bool = False,
@@ -511,7 +545,7 @@ def marching_cubes(
     dev = resolve_device("cpu" if cpu else device)
     d = _density_tensor(density, dev)
     lower, upper = resolve_bounds(tuple(d.shape), scale)
-    nvt, nft, nat = _counts(d, float(thresh))
+    nvt, nft, nat = _counts(d, thresh)
     nv, nf, na = torch.stack([nvt, nft, nat]).tolist()
     res = marching_cubes_padded(
         d, thresh,

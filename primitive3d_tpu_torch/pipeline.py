@@ -47,11 +47,13 @@ def render_depth(
     origins,
     dirs,
     *,
-    thresh: float = 0.0,
+    thresh=0.0,
     vert_capacity: int,
     face_capacity: int,
     lower=None,
     upper=None,
+    vert_units: int = 0,
+    cube_units: int = 0,
     active_capacity: int = 0,
     max_dist: float = 10.0,
     chunk: int = 512,
@@ -61,10 +63,12 @@ def render_depth(
     """Differentiable depth render of the ``thresh`` isosurface of
     ``density`` at fixed capacities.
 
-    ``chunk`` is the "mxu" backend's triangles per matrix product. The JAX
-    package's ``vert_units`` and ``cube_units`` are unused there and left
-    out here.
+    ``thresh`` is a float or a 0-d tensor, which then gets a gradient.
+    ``chunk`` is the "mxu" backend's triangles per matrix product.
+    ``vert_units`` and ``cube_units`` are accepted and unused, as in the JAX
+    package.
     """
+    del vert_units, cube_units
     if backend == "auto":
         backend = "pallas" if face_capacity > 8192 else "mxu"
     if backend not in ("pallas", "mxu"):

@@ -5,9 +5,10 @@ machine with a card run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The mask, cast and scalar-broadcast kernels repeat the plain versions'
-arithmetic in the same order with no FMA contraction, so masks and casts
-are compared exactly. The
+The mask, cull, cast and scalar-broadcast kernels repeat the plain
+versions' arithmetic in the same order with no FMA contraction, so masks,
+work lists and casts are compared exactly (the lists' bounds bit for bit).
+The
 plane scatter kernel sums each row in float32 in ray order where its plain
 version sums in float64: it is compared to a relative error of 1e-5, and
 with itself bit for bit.
@@ -29,6 +30,7 @@ from primitive3d_tpu_torch.kernels import mc_masks as mk
 from primitive3d_tpu_torch.kernels import raycast_kernel as rk
 from primitive3d_tpu_torch.raycast import ClusterRayCaster
 from primitive3d_tpu_torch.render.camera import camera_rays
+from tests.stream_cases import flat_case, rows
 
 BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data", "bunny.npy")
@@ -55,12 +57,19 @@ def test_masks_kernel_matches_plain(cuda, shape):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("S", [128, 256])
 @pytest.mark.parametrize("edge_wildcard", [False, True])
 @pytest.mark.parametrize("stream", [False, True])
-def test_cast_kernels_match_plain(cuda, stream, edge_wildcard):
+def test_cast_kernels_match_plain(cuda, stream, edge_wildcard, S):
+    """Depth, index and finish rows equal the plain version's on every
+    ray (on this frame no hit that the stream kernel's exit may drop can
+    win: tests/test_torch_stream.py); the stream kernel's walks reach at
+    most the listed entries of their chunk and test at most those."""
     v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0)
     rc = p3t.create_raycaster(v, f, config=RayCastConfig(
-        mxu_max_tris=0 if stream else 32_000, edge_wildcard=edge_wildcard))
+        mxu_max_tris=0 if stream else 32_000, edge_wildcard=edge_wildcard,
+        cluster_size=S))
+    assert rc.cbvh.cluster_size == S
     cam = camera_rays(128, 96, origin=(0.43, 0.57, -1.5),
                       look_at=(0.5, 0.5, 0.5), fov_y=35.0)
     o = torch.from_numpy(cam.origins).to(cuda)
@@ -73,10 +82,13 @@ def test_cast_kernels_match_plain(cuda, stream, edge_wildcard):
                 else (rk.RESIDENT, rk.cluster_cast_resident))
     args = (n, work) + ((bounds,) if stream else ()) + (
         rc.cbvh.w, rc.cbvh.fin, rays, 10.0, edge_wildcard)
+    kw = (dict(boxes=rc.cbvh.boxes, sub_boxes=rc.cbvh.sub_boxes) if stream
+          else {})
     before = kern.launches
-    visits = torch.zeros(n.shape[0] * rk.NCH, dtype=torch.int32,
-                         device=cuda)
-    got = fn(*args, visits=visits)
+    visits = torch.zeros(((n.shape[0] * rk.NCH, 3) if stream
+                          else n.shape[0] * rk.NCH),
+                         dtype=torch.int32, device=cuda)
+    got = fn(*args, visits=visits, **kw)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     want = rk.cluster_cast_plain(n, work, bounds, rc.cbvh.w, rc.cbvh.fin,
@@ -86,6 +98,62 @@ def test_cast_kernels_match_plain(cuda, stream, edge_wildcard):
     assert int(visits.sum()) > 0
     if not stream:  # the resident kernel visits every pair once
         assert int(visits.sum()) == int(n.sum())
+    else:  # per chunk: tested <= reached <= its listed entries for each
+        # walk, sub-boxes tested <= S / 8 per cluster tested
+        listed = ((work[:, :, None] >> torch.arange(rk.NCH, device=cuda)) & 1)
+        live = torch.arange(work.shape[1], device=cuda)[None, :] < n[:, None]
+        per_chunk = (listed * live[:, :, None]).sum(dim=1).reshape(-1)
+        walks = rk.RCHUNK // rk.STREAM_WALK
+        assert bool((visits[:, 1] <= visits[:, 0]).all())
+        assert bool((visits[:, 0] <= per_chunk * walks).all())
+        assert int(visits[:, 1].sum()) < int(visits[:, 0].sum())
+        assert bool((visits[:, 2] <= visits[:, 1] * (S // 8)).all())
+        assert int(visits[:, 2].sum()) < int(visits[:, 1].sum()) * (S // 8)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("mesh", ["bunny", "flat"])
+def test_cull_kernel_matches_plain(cuda, mesh, stream):
+    """The cull kernel's (n, work, bounds) equal the plain lists bit for
+    bit (the bounds as int32 bits: a zero is +0.0 in both) on the bunny
+    under 128x96 rays and on the cube of flat cluster boxes with rays from
+    box planes and a zero bound (tests/test_torch_stream.py); then the
+    stream cast on the cube equals its plain version."""
+    if mesh == "bunny":
+        v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0)
+        bvh = build_mxu_clusters(v[f.long()])
+        cam = camera_rays(128, 96, origin=(0.43, 0.57, -1.5),
+                          look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+        o, d = cam.origins, cam.dirs
+        pad = (-o.shape[0]) % rk.MBLOCK
+        o = np.concatenate([o, np.zeros((pad, 3), np.float32)])
+        d = np.concatenate([d, np.ones((pad, 3), np.float32)])
+    else:
+        bvh, o, d = flat_case()
+        bvh = type(bvh)(*(t.to(cuda) for t in bvh))
+    rays = rows(o, d).to(cuda)
+    before = rk.CULL.launches
+    got = rk.work_lists(bvh.boxes, rays, 10.0, stream)
+    torch.cuda.synchronize()
+    assert rk.CULL.launches == before + 1
+    want = rk.work_lists_plain(bvh.boxes, rays, 10.0, stream)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if stream:
+        assert torch.equal(got[2].view(torch.int32),
+                           want[2].view(torch.int32))
+        assert bool((want[2] == 0).any()) or mesh == "bunny"
+    else:
+        assert got[2] is None and want[2] is None
+    assert int(got[0].sum()) > 0
+    if stream and mesh == "flat":
+        n, entries, sbound = got
+        out = rk.cluster_cast_stream(n, entries, sbound, bvh.w, bvh.fin,
+                                     rays, 10.0, boxes=bvh.boxes,
+                                     sub_boxes=bvh.sub_boxes)
+        ref = rk.cluster_cast_plain(n, entries, sbound, bvh.w, bvh.fin,
+                                    rays, 10.0)
+        for g, w in zip(out, ref):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("tier", [32_000, 0])
@@ -273,5 +341,6 @@ def test_backends_card_equals_cpu(cuda, backend):
 def test_build_all_sources(cuda):
     logs = _build.build()
     assert set(_build.sources()) == {"cluster_cast.cu", "cluster_scalar.cu",
-                                     "mc_masks.cu", "plane_scatter.cu"}
+                                     "mc_masks.cu", "plane_scatter.cu",
+                                     "stream_cull.cu"}
     assert all(isinstance(text, str) for text in logs.values())

@@ -164,3 +164,92 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# --- thresh as a tensor, the JAX package's unit budgets, count dtypes ------
+
+def _thresh_grad_jax(form, g, t0, ct):
+    """d<out, ct>/d thresh of the JAX function at ``t0`` (jax.grad,
+    argnums=1); the eager form is the padded one cut to the eager counts."""
+    import jax
+    from primitive3d_tpu.ops.marching_cubes import \
+        marching_cubes_padded as jax_padded
+    from primitive3d_tpu.ops.marching_cubes import \
+        marching_cubes_soup as jax_soup
+    box = dict(lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0))
+
+    def out(d, t):
+        if form == "soup":
+            return jax_soup(d, t, face_capacity=4096, **box).soup
+        v = jax_padded(d, t, vert_capacity=2048, face_capacity=4096,
+                       **box).vertices
+        return v[:ct.shape[0]] if form == "eager" else v
+
+    return float(jax.grad(lambda d, t: jnp.sum(out(d, t) * ct),
+                          argnums=1)(jnp.asarray(g), jnp.float32(t0)))
+
+
+@pytest.mark.parametrize("form", ["padded", "eager", "soup"])
+def test_thresh_gradient_matches_jax(form):
+    """A 0-d tensor ``thresh`` gets the gradient of the JAX package's
+    functions (its hand-written VJP's ``dthresh`` for the indexed mesh,
+    autodiff of ``dt`` for the soup), relative tolerance 1e-5: the sum
+    over vertices runs in another order. The mask pass reads its value."""
+    g, t0 = sphere(16), 0.1
+    rng = np.random.default_rng(11)
+    box = dict(lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0))
+    t = torch.tensor(t0, requires_grad=True)
+    if form == "padded":
+        out = p3t.marching_cubes_padded(g, t, vert_capacity=2048,
+                                        face_capacity=4096, device="cpu",
+                                        **box).vertices
+    elif form == "soup":
+        out = p3t.marching_cubes_soup(g, t, face_capacity=4096,
+                                      device="cpu", **box).soup
+    else:
+        out = p3t.marching_cubes(g, t, scale=(-1.0, 1.0), device="cpu")[0]
+        want_v, _ = p3t.marching_cubes(g, t0, scale=(-1.0, 1.0),
+                                       device="cpu")
+        assert torch.equal(out.detach(), want_v)
+    ct = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    (out * torch.from_numpy(ct)).sum().backward()
+    want = _thresh_grad_jax(form, g, t0, ct)
+    assert t.grad is not None and abs(want) > 0
+    np.testing.assert_allclose(float(t.grad), want, rtol=1e-5)
+
+
+def test_vert_and_cube_units_are_accepted():
+    """The JAX package's ``vert_units`` / ``cube_units`` are accepted and
+    change nothing, as arguments and as config fields."""
+    g = sphere(16)
+    kw = dict(vert_capacity=2048, face_capacity=4096, device="cpu")
+    want = p3t.marching_cubes_padded(g, 0.0, **kw)
+    got = p3t.marching_cubes_padded(g, 0.0, vert_units=64, cube_units=32,
+                                    **kw)
+    cfg = p3t.MarchingCubesConfig(vert_capacity=2048, face_capacity=4096,
+                                  vert_units=64, cube_units=32)
+    by_cfg = p3t.marching_cubes_padded(g, 0.0, config=cfg, device="cpu")
+    for res in (got, by_cfg):
+        for a, b in zip(want, res):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_count_dtypes_match_jax(grid):
+    """Returned counts are int32, as the JAX package's, and equal them."""
+    g = GRIDS[grid]()
+    kw = dict(vert_capacity=16384, face_capacity=32768)
+    want = p3d.marching_cubes_padded(g, 0.0, **kw)
+    got = p3t.marching_cubes_padded(g, 0.0, device="cpu", **kw)
+    soup_j = p3d.marching_cubes_soup(g, 0.0, face_capacity=32768)
+    soup_t = p3t.marching_cubes_soup(g, 0.0, face_capacity=32768,
+                                     device="cpu")
+    pairs = list(zip(p3d.marching_cubes_counts(g, 0.0),
+                     p3t.marching_cubes_counts(g, 0.0, device="cpu")))
+    pairs += [(want.num_vertices, got.num_vertices),
+              (want.num_faces, got.num_faces),
+              (soup_j.num_faces, soup_t.num_faces)]
+    for w, t in pairs:
+        assert np.asarray(w).dtype == np.int32 and t.dtype == torch.int32
+        assert t.shape == () and int(t) == int(w)
+    assert soup_t.num_active.dtype == torch.int32

@@ -433,3 +433,27 @@ def test_render_depth_limits_and_device(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             p3t.sdf_fitting_loss(density, o, d,
                                  np.zeros(o.shape[0], np.float32), **kw)
+
+
+@pytest.mark.parametrize("backend", ["mxu", "pallas"])
+def test_render_depth_takes_jax_arguments(backend):
+    """A call in the JAX package's form: ``vert_units`` / ``cube_units``
+    are accepted and change nothing, and a 0-d tensor ``thresh`` gets the
+    gradient of ``jax.grad(..., argnums=1)`` of the JAX loss (relative
+    1e-5: sums in another order)."""
+    g = sphere_density()
+    o, d = front_rays()
+    target = np.full(o.shape[0], 30.0, np.float32)
+    kw = dict(KW, backend=backend)
+    want = p3t.render_depth(g, o, d, device="cpu", **kw)
+    got = p3t.render_depth(g, o, d, vert_units=7, cube_units=9,
+                           device="cpu", **kw)
+    assert torch.equal(want.depth, got.depth) and got.hit.any()
+    t = torch.tensor(0.05, requires_grad=True)
+    p3t.sdf_fitting_loss(g, o, d, target, thresh=t, vert_units=7,
+                         cube_units=9, device="cpu", **kw).backward()
+    gt = float(jax.grad(lambda th: jax_loss(
+        jnp.asarray(g), o, d, target, thresh=th, vert_units=7,
+        cube_units=9, **kw), argnums=0)(jnp.float32(0.05)))
+    assert t.grad is not None and abs(gt) > 0
+    np.testing.assert_allclose(float(t.grad), gt, rtol=1e-5)

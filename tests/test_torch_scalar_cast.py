@@ -324,9 +324,24 @@ def _index_order_walk(bvh, o, d, max_dist=10.0):
     return best.view(-1)[:R], bidx.view(-1)[:R]
 
 
+@pytest.fixture(scope="module")
+def index_walk(walk):
+    """``_index_order_walk`` of each mesh of ``walk``, computed once per
+    mesh: its result does not depend on ``ordered``."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            tb, _, rays = walk[name]
+            cache[name] = _index_order_walk(tb, rays[:3].T, rays[3:].T)
+        return cache[name]
+
+    return get
+
+
 @pytest.mark.parametrize("ordered", [True, False])
 @pytest.mark.parametrize("name", ["ico8", "ico16", "duplicated", "padded"])
-def test_plain_equals_index_order_walk(walk, name, ordered):
+def test_plain_equals_index_order_walk(walk, index_walk, name, ordered):
     """The new plain version against the walk it replaces, bit for bit in
     depth and id: the icosphere's rays, axis-parallel rays on cluster,
     sub-box and tree-node planes, a mesh whose every triangle appears
@@ -335,7 +350,7 @@ def test_plain_equals_index_order_walk(walk, name, ordered):
     tb, tree, rays = walk[name]
     fn = rk.cluster_scalar_ordered if ordered else rk.cluster_scalar
     depth, idx = fn(tree, tb, rays, 10.0)
-    want_d, want_i = _index_order_walk(tb, rays[:3].T, rays[3:].T)
+    want_d, want_i = index_walk(name)
     assert 0.3 < float((idx >= 0).float().mean()) < 0.95
     assert torch.equal(depth, want_d) and torch.equal(idx, want_i)
 
