@@ -33,9 +33,9 @@ depth against the analytic sphere and its loss and gradient norm against
 FLAGSHIP_r5.json, the large mesh's frame against the bunny's and, on the
 rays where they disagree, against a brute force of the large mesh), runs three
 Adam steps of the flagship fitting recipe, holds each kernel against its
-plain PyTorch version on the card at the shapes its path gives it (the
-stream cast bit for bit on every ray but those a float64 witness settles:
-``raycast_kernel.stream_disputes``), casts
+plain PyTorch version on the card at the shapes its path gives it (both
+cluster casts bit for bit on every ray but those a float64 witness
+settles: ``raycast_kernel.cast_disputes``), casts
 the level-0 bunny with the "mxu", "bruteforce" and "bvh" backends against
 the cluster caster, times the kernels and the paths' stages with CUDA
 events, and prints:
@@ -473,6 +473,20 @@ def main() -> int:
         check(torch.allclose(outs[0][0][same], outs[1][0][same], rtol=1e-5,
                              atol=1e-6), "small sphere: depth differs")
     log("small sphere: card equals CPU at both tiers")
+    # the bunny frame: the caster on the CPU, on the card's mesh
+    t0 = time.perf_counter()
+    h_cpu = create_raycaster(v_b.cpu(), f_b.cpu(), backend="pallas",
+                             device="cpu").cast(cam_b.origins, cam_b.dirs)
+    same_id = int((hits_b.face_id.cpu() == h_cpu.face_id).sum())
+    log(f"bunny: the card's cast against the CPU's "
+        f"({time.perf_counter() - t0:.1f} s): face ids equal on {same_id} of "
+        f"{h_cpu.face_id.shape[0]} rays")
+    check(same_id == h_cpu.face_id.shape[0]
+          and torch.allclose(hits_b.depth.cpu(), h_cpu.depth, rtol=1e-6,
+                             atol=1e-6)
+          and torch.allclose(hits_b.normals.cpu(), h_cpu.normals, rtol=0,
+                             atol=1e-6),
+          "bunny: the card's cast differs from the CPU's")
 
     # -- 4c. the large-mesh frame is the bunny's ----------------------------
     C_l, S_l = rc_l.cbvh.tri_data.shape[:2]
@@ -673,11 +687,12 @@ def main() -> int:
 
     def exact_cast(name, got, want, lists=None):
         """Depth (bits), index and finish rows equal on every ray; print the
-        rays that differ and fail. For the stream kernel (``lists`` = (n,
-        entries, w, rays, max_dist, edge_wildcard)), a differing ray passes
-        only where the float64 witness of rk.stream_disputes settles it:
-        the plain version's nearer hit is float32 noise, and the kernel
-        kept the nearest hit that is not. Returns the rays settled."""
+        rays that differ and fail. With ``lists`` = (n, work, stream, w,
+        rays, max_dist, edge_wildcard) (the cluster casts, whose culls skip
+        visits), a differing ray passes only where the float64 witness of
+        rk.cast_disputes settles it: the plain version's nearer hit is
+        float32 noise, and the kernel kept the nearest hit that is not.
+        Returns the rays settled."""
         dk, ik, fk = got
         dp, ip, fp = want
         fin_bad = ((fk.view(torch.int32) != fp.view(torch.int32)).any(dim=1)
@@ -690,7 +705,7 @@ def main() -> int:
             settled = torch.zeros_like(qs, dtype=torch.bool)
             clean = dk[qs]
         else:
-            qs, settled, clean = rk.stream_disputes(*lists, got, want)
+            qs, settled, clean = rk.cast_disputes(*lists, got, want)
         for j, q in enumerate(qs[:20].tolist()):
             log(f"  {name} ray {q}: kernel ({float(dk[q])!r}, {int(ik[q])}), "
                 f"plain ({float(dp[q])!r}, {int(ip[q])}), nearest hit that "
@@ -760,17 +775,15 @@ def main() -> int:
 
         args = (n, work) + ((bounds,) if rc.stream else ()) + (
             bvh.w, bvh.fin, rays, rc.max_dist)
-        kw = (dict(boxes=bvh.boxes, sub_boxes=bvh.sub_boxes) if rc.stream
-              else {})
-        visits = torch.zeros(((B * rk.NCH, 3) if rc.stream else B * rk.NCH),
-                             dtype=torch.int32, device=dev)
+        kw = dict(boxes=bvh.boxes, sub_boxes=bvh.sub_boxes)
+        visits = torch.zeros((B * rk.NCH, 3), dtype=torch.int32, device=dev)
         dk, ik, fk = fn(*args, visits=visits, **kw)
         dpl, ipl, fpl = rk.cluster_cast_plain(n, work, bounds, bvh.w,
                                               bvh.fin, rays, rc.max_dist)
         nset = exact_cast(f"{kern.name} ({name})", (dk, ik, fk),
                           (dpl, ipl, fpl),
-                          (n, work, bvh.w, rays, rc.max_dist, False)
-                          if rc.stream else None)
+                          (n, work, rc.stream, bvh.w, rays, rc.max_dist,
+                           False))
         err = float((dk - dpl).abs().max())
         # (cluster, chunk) visits in the work list: what the plain version
         # does, and what the stream kernel would do without its early exit
@@ -799,15 +812,9 @@ def main() -> int:
                   + used_s * per * rk.WROW * 4)
         t_ops = ops / FP32_FLOP_PER_S * 1e3
         t_bytes = cbytes / HBM_BYTES_PER_S * 1e3
-        if rc.stream:
-            reached, tested, subs = (int(x) for x in visits.sum(dim=0))
-            lanes = rk.STREAM_WALK
-            tris = subs * per
-        else:
-            reached = tested = int(visits.sum())
-            lanes = rk.RCHUNK
-            tris = tested * S
-        visit_ops = tris * lanes * CAST_OPS_PER_TEST
+        reached, tested, subs = (int(x) for x in visits.sum(dim=0))
+        tris = subs * per
+        visit_ops = tris * rk.STREAM_WALK * CAST_OPS_PER_TEST
         kernels.append(dict(
             name=kern.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/cluster_cast.cu",
@@ -816,26 +823,24 @@ def main() -> int:
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
-        units = B * rk.NCH * (rk.RCHUNK // rk.STREAM_WALK if rc.stream
-                              else 1)
+        units = B * rk.NCH * (rk.RCHUNK // rk.STREAM_WALK)
         log(f"{kern.name} ({name}): depth, index and finish rows equal the "
-            f"plain version's on all {rays.shape[1]} rays"
-            f"{f' but the {nset} settled above' if nset else ''}; {ms:.3f} ms "
+            f"plain version's on all {rays.shape[1]} rays but {nset} settled "
+            f"by the float64 witness; {ms:.3f} ms "
             f"(plain {pms:.2f} ms); {B} blocks, {int(n.sum())} list "
             f"entries, {flagged} (chunk, cluster) visits listed; the "
-            f"kernel's {'warps' if rc.stream else 'blocks'} reached "
-            f"{reached} listed visits ({reached / units:.2f} per "
-            f"{'warp' if rc.stream else 'chunk'}) and tested {tested} "
+            f"kernel's warps reached {reached} listed visits "
+            f"({reached / units:.2f} per warp) and tested {tested} "
             f"({tested / units:.2f}) after the box cull, and {tris} "
-            f"triangles ({tris / units:.1f}) "
-            f"{'after the sub-box cull' if rc.stream else 'in those'}; bound "
+            f"triangles ({tris / units:.1f}) after the sub-box cull; bound "
             f"{max(t_ops, t_bytes):.4f} ms from the frame's needed work: "
             f"{slabs_c} slab tests of the boxes and sub-boxes entered nearer "
             f"than the final depth ({slabs_c / R:.2f} per ray) and {tris_c} "
             f"triangle tests ({tris_c / R:.2f} per ray), {used_c} clusters "
             f"and {used_s} sub-boxes entered by some ray "
             f"(operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms); the "
-            f"kernel's tested triangles x {lanes} lanes would bound it at "
+            f"kernel's tested triangles x {rk.STREAM_WALK} lanes would bound "
+            f"it at "
             f"{visit_ops / FP32_FLOP_PER_S * 1e3:.4f} ms")
 
         # -- 6. the path's stage times for this configuration --------------
@@ -870,7 +875,8 @@ def main() -> int:
     got = rk.cluster_cast_stream(*sargs, **skw)
     nset = exact_cast(f"{rk.STREAM.name} (training)", got,
                       rk.cluster_cast_plain(*sargs),
-                      (n_t, e_t, sargs[3], sargs[5], sargs[6], sargs[7]))
+                      (n_t, e_t, True, sargs[3], sargs[5], sargs[6],
+                       sargs[7]))
     log(f"{rk.STREAM.name} (training step's inputs): {n_t.shape[0]} "
         f"blocks, {sargs[3].shape[0]} clusters; the lists equal the plain "
         f"cull's and depth, index and finish rows equal the plain cast's on "
@@ -896,7 +902,17 @@ def main() -> int:
                          atol=1e-6 * float(p4.abs().max())),
           "index_add_ differs from the plain plane scatter")
     ms = event_ms(lambda: rk.plane_scatter(*args), iters=20)
-    cm_ms = event_ms(lambda: rk._cluster_masks(n4, e4, C4), iters=20)
+    # each pass alone, on the scratch of a full launch: the keys (sort per
+    # block, bitmap) and the sums; the full time holds the allocations too
+    scratch = rk._scatter_scratch(n4.shape[0], C4, dev)
+    outp = torch.empty_like(k1)
+    rk._plane_scatter_passes(*args, outp, scratch, 3)
+    check(torch.equal(outp, k1), "plane_scatter: the passes differ from the "
+          "wrapper")
+    pass_ms = [event_ms(lambda: rk._plane_scatter_passes(
+        *args, outp, scratch, p), iters=20) for p in (1, 2)]
+    check(torch.equal(outp, k1), "plane_scatter: a timed pass changed the "
+          "output")
     pms = event_ms(lambda: rk.plane_scatter_plain(*args), iters=5)
     lms = event_ms(library, iters=20)
     B4 = n4.shape[0]
@@ -912,11 +928,15 @@ def main() -> int:
         launches=launches[rk.PLANE_SCATTER.name], max_abs_err=err, ms=ms,
         plain_ms=pms, bound_ms=sbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=lms))
+    log(f"plane_scatter passes (flagship backward): keys (the list table, "
+        f"a sort per 2048-ray block, the bitmap's zero fill) "
+        f"{pass_ms[0]:.4f} ms, sums {pass_ms[1]:.4f} ms")
     log(f"plane_scatter (flagship backward): equal bits over two launches, "
-        f"max err {err:.3g} (relative {rel:.3g}); {ms:.4f} ms, of which the "
-        f"(C, B) list view {cm_ms:.4f} ms (plain {pms:.3f} ms, index_add_ "
-        f"{lms:.4f} ms); {C4} clusters x {B4} blocks, {hit_rays} rays with "
-        f"a winner, bound {sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"max err {err:.3g} (relative {rel:.3g}); {ms:.4f} ms, the scratch "
+        f"and both passes (plain {pms:.3f} ms, index_add_ {lms:.4f} ms); "
+        f"{C4} clusters x {B4} blocks, {hit_rays} rays with a winner, "
+        f"{int(n4.sum())} list entries, bound "
+        f"{sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
     # the scalar-tier kernels on the large path's inputs: the whole frame on
     # the card, each kernel held bit for bit against the plain version on

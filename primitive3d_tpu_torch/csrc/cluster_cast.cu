@@ -11,7 +11,8 @@
 // computes each visit as one K=48 double-bf16 matrix product on its matrix
 // unit; here every test is plain fp32 on the CUDA cores.
 //
-// The function (equal to the plain version cluster_cast_plain, bit for bit):
+// The function (the plain version cluster_cast_plain, bit for bit on every
+// ray but those whose nearer hit is rounding noise, see the culls below):
 // per ray, over the triangles of the clusters listed for its chunk, a hit
 // needs the three Plücker side products and the numerator to share a sign
 // bit (with edge_wildcard, an exactly-zero product agrees with any sign);
@@ -35,25 +36,26 @@
 // What bounds it: operations, ~42 fp32 operations per ray-triangle test
 // (three 6-term side products, a 4-term numerator, two adds, a division).
 //
-// Resident design (simple first): one CUDA block of 256 threads per
-// (2048-ray block b, 256-ray chunk r), one ray per thread. The block walks
-// block b's pairs in list order and takes those of its own chunk. For each
-// it stages the cluster's S x 24-float rows in shared memory and every
-// thread tests all S triangles, reading each row with six broadcast float4
-// loads.
+// One walk for both lists (walk_kernel, a template over the list's
+// format): each warp of 32 rays walks its chunk's list on its own, with no
+// barrier and no block vote. A warp loads 32 list words at a time and takes
+// those of its chunk in list order. The resident list holds pairs
+// `(c << 3) | r`, has no bounds and no exit: the warp visits each listed
+// cluster in turn, as the TPU's `_kernel_mxu` does. The stream list holds
+// words `(c << 16) | chunk_mask` with their bounds, and adds the exit below.
+// The culls and the copies are the same for both.
 //
-// Stream design: each warp of 32 rays walks its chunk's list on its own,
-// with no barrier and no block vote. A warp loads 32 list words and bounds
-// at a time and takes those flagged for its chunk in list order:
-//   * early exit: at each entry of its chunk, when every lane's best <=
-//     the entry's bound, the warp stops. The list is sorted by bound, a
-//     lower bound on every later cluster's entry t for every ray of the
-//     chunk, so a later cluster can only win with a t below its own box:
-//     the t of a test whose side products are all rounding noise (a ray
-//     through a vertex, nearly in the triangle's plane), which a float64
-//     evaluation of the same row does not give. On such a ray the kernel
-//     may keep a farther hit than the plain version, which visits every
-//     listed cluster; raycast_kernel.stream_disputes settles each one;
+// The walk, per listed cluster:
+//   * early exit (stream list only): at each entry of its chunk, when
+//     every lane's best <= the entry's bound, the warp stops. The list is
+//     sorted by bound, a lower bound on every later cluster's entry t for
+//     every ray of the chunk, so a later cluster can only win with a t
+//     below its own box: the t of a test whose side products are all
+//     rounding noise (a ray through a vertex, nearly in the triangle's
+//     plane), which a float64 evaluation of the same row does not give. On
+//     such a ray the kernel may keep a farther hit than the plain version,
+//     which visits every listed cluster; raycast_kernel.cast_disputes
+//     settles each one;
 //   * box cull: each lane slab-tests the cluster box against its own ray,
 //     and a ballot skips the cluster when no lane's ray enters it ahead of
 //     its origin. The cull must never drop a cluster that holds a lane's
@@ -84,12 +86,12 @@
 
 namespace {
 
-constexpr int RCHUNK = 256;            // rays per chunk = threads per block
+constexpr int RCHUNK = 256;            // rays per chunk
 constexpr int NCH = 8;                 // chunks per 2048-ray block
 constexpr int MBLOCK = RCHUNK * NCH;
 constexpr int WROW = 24;               // floats per triangle row (22 + 2 pad)
 constexpr int MAX_S = 256;             // largest cluster size
-constexpr int SWARPS = 4;              // warps per CUDA block, stream tier
+constexpr int SWARPS = 4;              // warps per CUDA block
 constexpr int SUB = 8;                 // triangles per sub-box
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -172,59 +174,6 @@ __device__ __forceinline__ int test_key(const float* __restrict__ row, int j,
   return (__float_as_int(tm) & ~im) | j;
 }
 
-// Resident tier: a block per (block b, chunk r), a thread per ray.
-template <bool WILDCARD>
-__global__ void __launch_bounds__(RCHUNK) resident_kernel(
-    const int* __restrict__ work, const int* __restrict__ nwork, int stride,
-    const float* __restrict__ w, const float* __restrict__ fin,
-    const float* __restrict__ rays, long long Rp, int S, float max_dist,
-    float* __restrict__ depth, int* __restrict__ idx,
-    float* __restrict__ fin_out, int* __restrict__ visits) {
-  __shared__ __align__(16) float sw[MAX_S * WROW];
-  const int b = blockIdx.x / NCH;
-  const int r = blockIdx.x % NCH;
-  const long long ray = (long long)b * MBLOCK + r * RCHUNK + threadIdx.x;
-  // rays: (9, Rp) rows d, m = o x d, o
-  const float dx = rays[ray], dy = rays[Rp + ray], dz = rays[2 * Rp + ray];
-  const float mx = rays[3 * Rp + ray], my = rays[4 * Rp + ray],
-              mz = rays[5 * Rp + ray];
-  const float ox = rays[6 * Rp + ray], oy = rays[7 * Rp + ray],
-              oz = rays[8 * Rp + ray];
-  const int im = S - 1;
-  const int n = nwork[b];
-  const int* wl = work + (long long)b * stride;
-  float best = max_dist;
-  int bidx = -1;
-  int nvis = 0;
-
-  for (int e = 0; e < n; ++e) {
-    const int word = wl[e];  // block-uniform
-    if ((word & (NCH - 1)) != r) continue;
-    const int c = word >> 3;
-    ++nvis;
-    __syncthreads();  // all threads are done with the previous cluster
-    const float4* src =
-        reinterpret_cast<const float4*>(w + (long long)c * S * WROW);
-    float4* dst = reinterpret_cast<float4*>(sw);
-    for (int i = threadIdx.x; i < S * WROW / 4; i += RCHUNK) dst[i] = src[i];
-    __syncthreads();
-
-    int kmin = INT_MAX;
-#pragma unroll 2
-    for (int j = 0; j < S; ++j) {
-      kmin = min(kmin, test_key<WILDCARD>(sw + j * WROW, j, im, dx, dy, dz,
-                                          mx, my, mz, ox, oy, oz));
-    }
-    const float tb = __int_as_float(kmin & ~im);
-    if (tb < best) {
-      best = tb;
-      bidx = c * S + (kmin & im);
-    }
-  }
-  finish(ray, best, bidx, fin, depth, idx, fin_out);
-  if (visits != nullptr && threadIdx.x == 0) visits[blockIdx.x] = nvis;
-}
-
 // One axis of the box cull's slab test: the entry and exit t of [l, h]. A
 // NaN is 0 * inf: the ray runs in one of the slab's planes, inside the
 // closed slab for every t.
@@ -258,9 +207,11 @@ __device__ __forceinline__ bool box_enters(const float* __restrict__ bx,
   return tmin <= tmax && tmax >= 0.0f;
 }
 
-// Stream tier: a warp per 32 rays, walking its chunk's list on its own.
-template <bool WILDCARD>
-__global__ void __launch_bounds__(SWARPS * 32) stream_kernel(
+// A warp per 32 rays, walking its chunk's list on its own. STREAM: the
+// list holds words `(c << 16) | chunk_mask` with bounds and an exit; else
+// pairs `(c << 3) | r` (bounds unused).
+template <bool WILDCARD, bool STREAM>
+__global__ void __launch_bounds__(SWARPS * 32) walk_kernel(
     const int* __restrict__ entries, const float* __restrict__ bounds,
     const int* __restrict__ nwork, int stride,
     const float* __restrict__ boxes, const float* __restrict__ sub_boxes,
@@ -286,7 +237,7 @@ __global__ void __launch_bounds__(SWARPS * 32) stream_kernel(
   const int im = S - 1;
   const int n = nwork[b];
   const int* wl = entries + (long long)b * stride;
-  const float* bl = bounds + (long long)b * stride;
+  const float* bl = STREAM ? bounds + (long long)b * stride : nullptr;
   const int nsub = S >= SUB ? S / SUB : 1;  // sub-boxes per cluster
   const int per = S / nsub;                 // triangles per sub-box
   float best = max_dist;
@@ -297,17 +248,21 @@ __global__ void __launch_bounds__(SWARPS * 32) stream_kernel(
   for (int e0 = 0; e0 < n && !done; e0 += 32) {
     const int e = e0 + lane;
     const int word = e < n ? __ldg(wl + e) : 0;
-    const float bnd = e < n ? __ldg(bl + e) : 0.0f;
-    unsigned mine = __ballot_sync(FULL, (word >> r) & 1);
+    const float bnd = STREAM && e < n ? __ldg(bl + e) : 0.0f;
+    const bool ours = e < n && (STREAM ? ((word >> r) & 1) != 0
+                                       : (word & (NCH - 1)) == r);
+    unsigned mine = __ballot_sync(FULL, ours);
     while (mine != 0) {
       const int k = __ffs(mine) - 1;
       mine &= mine - 1;
-      const float be = __shfl_sync(FULL, bnd, k);
-      if (__all_sync(FULL, best <= be)) {
-        done = true;
-        break;
+      if (STREAM) {
+        const float be = __shfl_sync(FULL, bnd, k);
+        if (__all_sync(FULL, best <= be)) {
+          done = true;
+          break;
+        }
       }
-      const int c = __shfl_sync(FULL, word, k) >> 16;
+      const int c = __shfl_sync(FULL, word, k) >> (STREAM ? 16 : 3);
       ++listed;
       const bool in = box_enters(boxes + 6LL * c, ox, oy, oz, ix, iy, iz,
                                  span, widen);
@@ -359,82 +314,75 @@ __global__ void __launch_bounds__(SWARPS * 32) stream_kernel(
   }
 }
 
-template <bool WILDCARD>
-void launch_resident(const int* work, const int* nwork, int stride,
-                     const float* w, const float* fin, const float* rays,
-                     long long Rp, int B, int S, float max_dist, float* depth,
-                     int* idx, float* fin_out, int* visits,
-                     cudaStream_t stream) {
-  resident_kernel<WILDCARD><<<B * NCH, RCHUNK, 0, stream>>>(
-      work, nwork, stride, w, fin, rays, Rp, S, max_dist, depth, idx,
-      fin_out, visits);
-}
-
-template <bool WILDCARD>
-void launch_stream(const int* entries, const float* bounds, const int* nwork,
-                   int stride, const float* boxes, const float* sub_boxes,
-                   float widen, const float* w, const float* fin,
-                   const float* rays,
-                   long long Rp, int B, int S, float max_dist, float* depth,
-                   int* idx, float* fin_out, int* visits,
-                   cudaStream_t stream) {
+template <bool WILDCARD, bool STREAM>
+void launch(const int* work, const float* bounds, const int* nwork,
+            int stride, const float* boxes, const float* sub_boxes,
+            float widen, const float* w, const float* fin, const float* rays,
+            long long Rp, int B, int S, float max_dist, float* depth,
+            int* idx, float* fin_out, int* visits, cudaStream_t stream) {
   const int bytes = SWARPS * S * WROW * 4;  // each warp's copy of a cluster
   if (bytes > 48 * 1024) {
-    cudaFuncSetAttribute(stream_kernel<WILDCARD>,
+    cudaFuncSetAttribute(walk_kernel<WILDCARD, STREAM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
-  stream_kernel<WILDCARD><<<B * (MBLOCK / 32 / SWARPS), SWARPS * 32, bytes,
-                            stream>>>(entries, bounds, nwork, stride, boxes,
-                                      sub_boxes, widen, w, fin, rays, Rp, S,
-                                      max_dist, depth, idx, fin_out, visits);
+  walk_kernel<WILDCARD, STREAM><<<B * (MBLOCK / 32 / SWARPS), SWARPS * 32,
+                                  bytes, stream>>>(
+      work, bounds, nwork, stride, boxes, sub_boxes, widen, w, fin, rays, Rp,
+      S, max_dist, depth, idx, fin_out, visits);
 }
 
-bool bad_shape(long long Rp, int B, int S) {
-  return S < 1 || S > MAX_S || (S & (S - 1)) != 0 || B < 1 ||
-         Rp != (long long)B * MBLOCK;
-}
-
-}  // namespace
-
-// Resident tier: pairs (B, stride) int32 `(c << 3) | r`, n (B,) int32;
-// visits (B * 8,) int32 or null: each chunk's clusters tested.
-extern "C" int cluster_cast_resident(
-    const int* pairs, const int* n, int stride, const float* w,
-    const float* fin, const float* rays, long long Rp, int B, int S,
-    float max_dist, int edge_wildcard, float* depth, int* idx,
-    float* fin_out, int* visits, cudaStream_t stream) {
-  if (bad_shape(Rp, B, S)) return (int)cudaErrorInvalidValue;
+template <bool STREAM>
+int cast(const int* work, const float* bounds, const int* n, int stride,
+         const float* boxes, const float* sub_boxes, float widen,
+         const float* w, const float* fin, const float* rays, long long Rp,
+         int B, int S, float max_dist, int edge_wildcard, float* depth,
+         int* idx, float* fin_out, int* visits, cudaStream_t stream) {
+  if (S < 1 || S > MAX_S || (S & (S - 1)) != 0 || B < 1 ||
+      Rp != (long long)B * MBLOCK) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (edge_wildcard) {
-    launch_resident<true>(pairs, n, stride, w, fin, rays, Rp, B, S, max_dist,
-                          depth, idx, fin_out, visits, stream);
+    launch<true, STREAM>(work, bounds, n, stride, boxes, sub_boxes, widen, w,
+                         fin, rays, Rp, B, S, max_dist, depth, idx, fin_out,
+                         visits, stream);
   } else {
-    launch_resident<false>(pairs, n, stride, w, fin, rays, Rp, B, S,
-                           max_dist, depth, idx, fin_out, visits, stream);
+    launch<false, STREAM>(work, bounds, n, stride, boxes, sub_boxes, widen,
+                          w, fin, rays, Rp, B, S, max_dist, depth, idx,
+                          fin_out, visits, stream);
   }
   return (int)cudaGetLastError();
 }
 
-// Stream tier: entries (B, stride) int32 `(c << 16) | chunk_mask` and their
-// bounds (B, stride) float32, sorted front to back; n (B,) int32; the
-// cluster boxes (C, 6) and sub-boxes (C, max(1, S / 8), 6) float32 and
-// their widening for the culls; visits (B * 8, 3) int32, zeroed, or null:
-// per chunk, summed over its warps, the list entries they reached, the
-// clusters and the sub-boxes they tested.
+}  // namespace
+
+// Both entry points take the same arguments: the list (B, stride) int32
+// and n (B,) int32; the bounds (B, stride) float32 (stream tier; null for
+// the resident tier); the cluster boxes (C, 6) and sub-boxes
+// (C, max(1, S / 8), 6) float32 and their widening for the culls; visits
+// (B * 8, 3) int32, zeroed, or null: per chunk, summed over its warps, the
+// list entries they reached, the clusters and the sub-boxes they tested.
+
+// Resident tier: pairs `(c << 3) | r`, cluster-major.
+extern "C" int cluster_cast_resident(
+    const int* pairs, const float* bounds, const int* n, int stride,
+    const float* boxes, const float* sub_boxes, float widen, const float* w,
+    const float* fin, const float* rays, long long Rp, int B, int S,
+    float max_dist, int edge_wildcard, float* depth, int* idx,
+    float* fin_out, int* visits, cudaStream_t stream) {
+  return cast<false>(pairs, bounds, n, stride, boxes, sub_boxes, widen, w,
+                     fin, rays, Rp, B, S, max_dist, edge_wildcard, depth,
+                     idx, fin_out, visits, stream);
+}
+
+// Stream tier: entries `(c << 16) | chunk_mask` and their bounds, sorted
+// front to back.
 extern "C" int cluster_cast_stream(
     const int* entries, const float* bounds, const int* n, int stride,
     const float* boxes, const float* sub_boxes, float widen, const float* w,
     const float* fin, const float* rays, long long Rp, int B, int S,
     float max_dist, int edge_wildcard, float* depth, int* idx,
     float* fin_out, int* visits, cudaStream_t stream) {
-  if (bad_shape(Rp, B, S)) return (int)cudaErrorInvalidValue;
-  if (edge_wildcard) {
-    launch_stream<true>(entries, bounds, n, stride, boxes, sub_boxes, widen,
-                        w, fin, rays, Rp, B, S, max_dist, depth, idx, fin_out,
-                        visits, stream);
-  } else {
-    launch_stream<false>(entries, bounds, n, stride, boxes, sub_boxes, widen,
-                         w, fin, rays, Rp, B, S, max_dist, depth, idx,
-                         fin_out, visits, stream);
-  }
-  return (int)cudaGetLastError();
+  return cast<true>(entries, bounds, n, stride, boxes, sub_boxes, widen, w,
+                    fin, rays, Rp, B, S, max_dist, edge_wildcard, depth, idx,
+                    fin_out, visits, stream);
 }

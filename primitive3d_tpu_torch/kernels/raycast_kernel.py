@@ -18,13 +18,14 @@ Pallas counterpart: the JAX package builds the lists in plain XLA.
     with the sorted bounds beside it.
 
 Two kernels consume them, each with its wrapper and launch count:
-``cluster_cast_resident`` (a block per chunk) and ``cluster_cast_stream``
-(a warp per 32 rays, walking the list on its own with a box and a
-sub-box cull per cluster and an early exit per warp). A wrapper launches
-its kernel for CUDA tensors and runs the plain version for CPU tensors
-(``cluster_cast_plain`` for both casts, which visits every listed
-cluster); there is no fallback between the two. ``stream_disputes``
-settles the rays where the stream kernel's exit is not exact.
+``cluster_cast_resident`` and ``cluster_cast_stream``, one walk in
+``csrc/cluster_cast.cu``: a warp per 32 rays walks its chunk's list on its
+own, with a box and a sub-box cull per cluster, and for the stream list an
+early exit per warp. A wrapper launches its kernel for CUDA tensors and
+runs the plain version for CPU tensors (``cluster_cast_plain`` for both
+casts, which visits every listed cluster); there is no fallback between
+the two. ``cast_disputes`` settles the rays where the culls or the exit
+are not exact against rounding noise.
 
 Past STREAM_MAX_CLUSTERS clusters (the stream word's 15-bit cluster id)
 the casters take the scalar tier, ``cast_clusters`` (the JAX function of
@@ -40,7 +41,8 @@ The differentiable cast ``cast_clusters_diff`` (counterpart of the JAX
 function of that name and its custom VJPs) finds hits with those kernels
 and recomputes depth from the winners' planes. Its stream-tier backward is
 a further kernel, ``plane_scatter`` (``csrc/plane_scatter.cu``, plain
-version ``plane_scatter_plain``), which walks the forward's work list.
+version ``plane_scatter_plain``): over the forward's work list, it orders
+the rays by winner once and sums each row in ray order.
 """
 from __future__ import annotations
 
@@ -68,11 +70,12 @@ _I64_MAX = torch.iinfo(torch.int64).max
 # this many clusters the casters take the scalar-broadcast tier
 STREAM_MAX_CLUSTERS = 32767
 
-_CAST_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p]
+# [work, bounds, n, stride, boxes, sub_boxes, widen, w, fin, rays, Rp, B, S,
+#  max_dist, edge_wildcard, depth, idx, fin_out, visits]
+_CAST_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+              + [ctypes.c_float] + [ctypes.c_void_p] * 3
+              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4)
 RESIDENT = _build.Kernel(
     "cluster_cast_resident", "cluster_cast.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:604",
@@ -80,16 +83,15 @@ RESIDENT = _build.Kernel(
 STREAM = _build.Kernel(
     "cluster_cast_stream", "cluster_cast.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:372",
-    argtypes=(_CAST_ARGS[:1] + [ctypes.c_void_p] + _CAST_ARGS[1:3]
-              + [ctypes.c_void_p] * 2 + [ctypes.c_float] + _CAST_ARGS[3:]))
-STREAM_WALK = 32  # rays per independent walk of the stream kernel (a warp)
-# the stream kernel's box cull widens each box by this share of |o|_1 + the
+    argtypes=_CAST_ARGS)
+STREAM_WALK = 32  # rays per independent walk of both cast kernels (a warp)
+# the cast kernels' box cull widens each box by this share of |o|_1 + the
 # box's largest coordinate (a launch argument of csrc/cluster_cast.cu)
 CULL_WIDEN = 2.0 ** -14
 # a float32 t that a float64 evaluation of the same test does not confirm
 # to this share, or whose test fails in float64, is rounding noise
 NOISE_REL = 2.0 ** -12
-_DISPUTES_MAX = 4096  # differing rays stream_disputes examines at most
+_DISPUTES_MAX = 4096  # differing rays cast_disputes examines at most
 
 
 # --- prep: ray intervals, interval cull, work lists --------------------------
@@ -338,11 +340,11 @@ def cluster_cast_plain(n: Tensor, work: Tensor, bounds: Optional[Tensor],
     triangles comes first; then, per ray, the smallest quantised t below
     max_dist wins, the first visit in list order on equal t (an int64 key
     ``t_bits << 32 | entry << 8 | slot`` and an amin). This version visits
-    every listed cluster. The stream kernel skips clusters by its culls and
-    its early exit, which drop no hit whose t lies inside its own box
-    (``tests/test_torch_stream.py``); a sliver triangle's t, whose
-    side-product sum is rounding noise, can lie far outside it, and on such
-    a ray the kernel may keep a farther hit than this version.
+    every listed cluster. The kernels skip clusters by their culls (and the
+    stream kernel by its early exit), which drop no hit whose t lies inside
+    its own box (``tests/test_torch_stream.py``); a sliver triangle's t,
+    whose side-product sum is rounding noise, can lie far outside it, and on
+    such a ray a kernel may keep a farther hit than this version.
     """
     stream = bounds is not None
     dev = rays.device
@@ -390,7 +392,7 @@ def cluster_cast_plain(n: Tensor, work: Tensor, bounds: Optional[Tensor],
 # --- the cast: kernel wrappers -----------------------------------------------
 
 def _stream_box_enters(boxes: Tensor, o: Tensor, d: Tensor) -> Tensor:
-    """The stream kernel's box and sub-box cull in plain PyTorch, in its
+    """The cast kernels' box and sub-box cull in plain PyTorch, in their
     order of operations: does the ray ``o``/``d`` (..., 3) enter the box
     ``boxes`` (..., 6), widened by 2^-14 of (|o|_1 + the box's largest
     coordinate), ahead of its origin? All broadcast together -> (...) bool.
@@ -406,27 +408,56 @@ def _stream_box_enters(boxes: Tensor, o: Tensor, d: Tensor) -> Tensor:
                  [inv[..., a] for a in range(3)])[1]
 
 
-def stream_disputes(n: Tensor, entries: Tensor, w: Tensor, rays: Tensor,
-                    max_dist: float, edge_wildcard: bool, got, want):
-    """The rays on which a stream cast ``got`` = (depth, idx, ...) differs
-    from the plain version's ``want``, each settled or not by a float64
-    witness -> (rays (Q,) int64, settled (Q,) bool, clean t (Q,)).
+def _witness(W: Tensor, R: Tensor, edge_wildcard: bool, max_dist: float
+             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The float32 tests of cluster rows W (V, S, 24) against ray rows R
+    (9, V, k), as :func:`_triangle_tests`, and a float64 witness of each
+    -> (quantised t, hit: t < max_dist, noise), each (V, S, k). A hit is
+    noise when its test fails in float64 on the same rows, or its float64
+    t differs from its float32 t by more than NOISE_REL."""
+    S = W.shape[1]
+    ok, t = _triangle_tests(W, R, edge_wildcard)
+    tm = torch.abs(torch.where(ok, t, 3.0e38))
+    tq = (tm.view(torch.int32) & ~(S - 1)).view(torch.float32)
+    ok64, t64 = _triangle_tests(W.double(), R.double(), edge_wildcard)
+    t64 = t64.abs()
+    hit = tq < max_dist
+    noise = hit & ~(ok64 & ((t64 - tm.double()).abs() <= NOISE_REL * t64))
+    return tq, hit, noise
 
-    The stream kernel visits a subset of the listed clusters (its culls and
-    early exit), so it may keep a farther hit than the plain version only
-    where the plain version's winner lies in front of its own box. A ray
-    is settled when (1) the plain t <= the kernel's t <= the clean t, the
-    nearest float32 hit over the ray's listed clusters that is not noise;
-    (2) the plain version's winning test is noise: it fails in float64 on
-    the same rows, or its float64 t differs from its float32 t by more
-    than NOISE_REL; (3) the kernel's (t, idx) is the float32 test of that
-    ray with that triangle, and its cluster is listed (or a miss). Past
-    _DISPUTES_MAX differing rays none is settled: that is no rounding
-    matter.
+
+def _listed_clusters(n: Tensor, work: Tensor, stream: bool, b: int,
+                     r: int) -> Tensor:
+    """The clusters listed for chunk ``r`` of block ``b``, in list order:
+    stream words ``(c << 16) | chunk mask`` or resident pairs ``(c << 3) |
+    r`` -> (Lq,) int64."""
+    row = work[b, :int(n[b])]
+    if stream:
+        return (row[((row >> r) & 1).bool()] >> 16).to(torch.int64)
+    return (row[(row & (NCH - 1)) == r] >> 3).to(torch.int64)
+
+
+def cast_disputes(n: Tensor, work: Tensor, stream: bool, w: Tensor,
+                  rays: Tensor, max_dist: float, edge_wildcard: bool, got,
+                  want):
+    """The rays on which a cast ``got`` = (depth, idx, ...) differs from
+    the plain version's ``want``, each settled or not by a float64 witness
+    -> (rays (Q,) int64, settled (Q,) bool, clean t (Q,)). ``(n, work)`` is
+    the cast's list: stream words if ``stream``, else resident pairs.
+
+    A cast kernel visits a subset of the listed clusters (its culls, and
+    the stream kernel's early exit), so it may keep a farther hit than the
+    plain version only where the plain version's winner lies outside its
+    own box or in front of it. A ray is settled when (1) the plain t <= the
+    kernel's t <= the clean t, the nearest float32 hit over the ray's
+    listed clusters that is not noise; (2) the plain version's winning test
+    is noise (:func:`_witness`); (3) the kernel's (t, idx) is the float32
+    test of that ray with that triangle, and its cluster is listed (or a
+    miss). Past _DISPUTES_MAX differing rays none is settled: that is no
+    rounding matter.
     """
     dev = rays.device
     S = w.shape[1]
-    im = S - 1
     dk, ik = got[0], got[1]
     dp, ip = want[0], want[1]
     bad = ((dk.view(torch.int32) != dp.view(torch.int32)) | (ik != ip))
@@ -435,23 +466,12 @@ def stream_disputes(n: Tensor, entries: Tensor, w: Tensor, rays: Tensor,
     clean = torch.full((qs.shape[0],), float(max_dist), device=dev)
     if qs.shape[0] > _DISPUTES_MAX:
         return qs, settled, clean
-    L = entries.shape[1]
     for j, q in enumerate(qs.tolist()):
-        b, r = q // MBLOCK, (q % MBLOCK) // RCHUNK
-        listed = (((entries[b] >> r) & 1).bool()
-                  & (torch.arange(L, device=dev) < n[b]))
-        c = (entries[b][listed] >> 16).to(torch.int64)  # in list order
-        ray = rays[:, q].reshape(9, 1, 1)
-        ok, t = _triangle_tests(w[c], ray, edge_wildcard)
-        tm = torch.abs(torch.where(ok, t, 3.0e38))[..., 0]  # (Lq, S)
-        tq = (tm.view(torch.int32) & ~im).view(torch.float32)
-        ok64, t64 = _triangle_tests(w[c].double(), ray.double(),
-                                    edge_wildcard)
-        ok64, t64 = ok64[..., 0], t64[..., 0].abs()
-        hit = tq < max_dist
-        noise = hit & ~(ok64 & ((t64 - tm.double()).abs()
-                                <= NOISE_REL * t64))
-        real = hit & ~noise
+        c = _listed_clusters(n, work, stream, q // MBLOCK,
+                             (q % MBLOCK) // RCHUNK)
+        tq, hit, noise = (x[..., 0] for x in _witness(
+            w[c], rays[:, q].reshape(9, 1, 1), edge_wildcard, max_dist))
+        real = hit & ~noise  # (Lq, S)
         if bool(real.any()):
             clean[j] = tq[real].min()
         tp, tk = float(dp[q]), float(dk[q])
@@ -469,8 +489,7 @@ def stream_disputes(n: Tensor, entries: Tensor, w: Tensor, rays: Tensor,
     return qs, settled, clean
 
 
-def _check_cast_inputs(n, work, bounds, w, fin, rays, boxes=None,
-                       sub_boxes=None):
+def _check_cast_inputs(n, work, bounds, w, fin, rays, boxes, sub_boxes):
     if w.dim() != 3 or w.shape[2] != WROW or w.dtype != torch.float32:
         raise ValueError(f"w must be (C, S, {WROW}) float32, got "
                          f"{w.dtype} {tuple(w.shape)}")
@@ -490,12 +509,11 @@ def _check_cast_inputs(n, work, bounds, w, fin, rays, boxes=None,
     if bounds is not None and (bounds.shape != work.shape
                                or bounds.dtype != torch.float32):
         raise ValueError("bounds must match the entries, float32")
-    if boxes is not None and (tuple(boxes.shape) != (C, 6)
-                              or boxes.dtype != torch.float32):
+    if tuple(boxes.shape) != (C, 6) or boxes.dtype != torch.float32:
         raise ValueError(f"boxes must be ({C}, 6) float32")
     nsub = max(1, S // SUB_SIZE)
-    if sub_boxes is not None and (tuple(sub_boxes.shape) != (C, nsub, 6)
-                                  or sub_boxes.dtype != torch.float32):
+    if (tuple(sub_boxes.shape) != (C, nsub, 6)
+            or sub_boxes.dtype != torch.float32):
         raise ValueError(f"sub_boxes must be ({C}, {nsub}, 6) float32")
     for t in (n, work, bounds, w, fin, rays, boxes, sub_boxes):
         if t is None:
@@ -522,18 +540,16 @@ def _cast(kernel, n, work, bounds, boxes, sub_boxes, w, fin, rays,
     idx = torch.empty((Rp,), dtype=torch.int32, device=dev)
     finr = (torch.empty((Rp, 8), dtype=torch.float32, device=dev)
             if with_fin else None)
-    vshape = (B * NCH,) if bounds is None else (B * NCH, 3)
+    vshape = (B * NCH, 3)
     if visits is not None and (tuple(visits.shape) != vshape
                                or visits.dtype != torch.int32
                                or visits.device != dev):
         raise ValueError(f"visits must be {vshape} int32 on {dev}")
-    lists = [work.data_ptr(), n.data_ptr(), work.shape[1]]
-    if bounds is not None:
-        lists[1:1] = [bounds.data_ptr()]
-        lists += [boxes.data_ptr(), sub_boxes.data_ptr(), CULL_WIDEN]
     with torch.cuda.device(dev):
         kernel.launch(
-            *lists, w.data_ptr(),
+            work.data_ptr(), bounds.data_ptr() if bounds is not None
+            else None, n.data_ptr(), work.shape[1], boxes.data_ptr(),
+            sub_boxes.data_ptr(), CULL_WIDEN, w.data_ptr(),
             fin.data_ptr(), rays.data_ptr(), Rp, B, w.shape[1],
             float(max_dist), int(bool(edge_wildcard)), depth.data_ptr(),
             idx.data_ptr(), finr.data_ptr() if with_fin else None,
@@ -544,12 +560,17 @@ def _cast(kernel, n, work, bounds, boxes, sub_boxes, w, fin, rays,
 def cluster_cast_resident(n: Tensor, pairs: Tensor, w: Tensor, fin: Tensor,
                           rays: Tensor, max_dist: float,
                           edge_wildcard: bool = False, with_fin: bool = True,
-                          visits: Optional[Tensor] = None):
+                          visits: Optional[Tensor] = None, *, boxes: Tensor,
+                          sub_boxes: Tensor):
     """Resident-tier cast: (depth (Rp,), sorted idx (Rp,), fin rows (Rp, 8)).
 
-    ``visits`` (B * NCH,) int32, if given, receives each chunk's visit count
-    (kernel only)."""
-    return _cast(RESIDENT, n, pairs, None, None, None, w, fin, rays,
+    ``boxes`` (C, 6) and ``sub_boxes`` (C, max(1, S / SUB_SIZE), 6) are the
+    cluster boxes and sub-boxes, which the kernel's per-warp culls read (the
+    plain version visits every listed pair). ``visits`` (B * NCH, 3) int32,
+    if given, zeroed, receives per chunk, summed over its walks of
+    STREAM_WALK rays, the pairs they reached, the clusters and the
+    sub-boxes they tested (kernel only)."""
+    return _cast(RESIDENT, n, pairs, None, boxes, sub_boxes, w, fin, rays,
                  max_dist, edge_wildcard, with_fin, visits)
 
 
@@ -558,14 +579,9 @@ def cluster_cast_stream(n: Tensor, entries: Tensor, bounds: Tensor,
                         edge_wildcard: bool = False, with_fin: bool = True,
                         visits: Optional[Tensor] = None, *, boxes: Tensor,
                         sub_boxes: Tensor):
-    """Stream-tier cast, same outputs as :func:`cluster_cast_resident`.
-
-    ``boxes`` (C, 6) and ``sub_boxes`` (C, max(1, S / SUB_SIZE), 6) are the
-    cluster boxes and sub-boxes, which the kernel's per-warp culls read (the
-    plain version visits every listed cluster). ``visits`` (B * NCH, 3)
-    int32, if given, zeroed, receives per chunk, summed over its walks of
-    STREAM_WALK rays, the list entries they reached, the clusters and the
-    sub-boxes they tested (kernel only)."""
+    """Stream-tier cast, the outputs and the keyword arguments of
+    :func:`cluster_cast_resident`; the walks also stop at their early exit,
+    so ``visits`` counts the list entries they reached before it."""
     return _cast(STREAM, n, entries, bounds, boxes, sub_boxes, w, fin, rays,
                  max_dist, edge_wildcard, with_fin, visits)
 
@@ -582,13 +598,15 @@ def _cast_with_list(bvh, origins: Tensor, dirs: Tensor, max_dist: float,
     R = origins.shape[0]
     n, work, bounds, rays = _mxu_prep(bvh, origins, dirs, float(max_dist),
                                       stream)
+    cull = dict(boxes=bvh.boxes, sub_boxes=bvh.sub_boxes)
     if stream:
         depth, idx, finr = cluster_cast_stream(
             n, work, bounds, bvh.w, bvh.fin, rays, max_dist, edge_wildcard,
-            with_fin, boxes=bvh.boxes, sub_boxes=bvh.sub_boxes)
+            with_fin, **cull)
     else:
         depth, idx, finr = cluster_cast_resident(
-            n, work, bvh.w, bvh.fin, rays, max_dist, edge_wildcard, with_fin)
+            n, work, bvh.w, bvh.fin, rays, max_dist, edge_wildcard, with_fin,
+            **cull)
     return (depth[:R], idx[:R], finr[:R] if with_fin else None), (n, work)
 
 
@@ -940,11 +958,13 @@ def cast_clusters(bvh, origins: Tensor, dirs: Tensor, max_dist: float = 10.0,
 
 # --- backward: plane cotangents -> cluster-space rows ------------------------
 
+# [n, entries, stride, B, widx, g, C, S, keys, nvalid, bitmap, out, passes]
 PLANE_SCATTER = _build.Kernel(
     "plane_scatter", "plane_scatter.cu",
     replaces="primitive3d_tpu/kernels/raycast_kernel.py:1279",
-    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int])
 
 
 def _cluster_masks(n: Tensor, entries: Tensor, C: int) -> Tensor:
@@ -990,8 +1010,9 @@ def plane_scatter(g: Tensor, widx: Tensor, n: Tensor, entries: Tensor,
     ``g`` (Rp, 4) float32 and ``widx`` (Rp,) int32 (the sorted winner, -1
     for none) over rays padded to a multiple of MBLOCK; ``(n, entries)`` the
     forward's stream work list. Launches ``csrc/plane_scatter.cu`` for CUDA
-    tensors (same bits on every launch) and runs
-    :func:`plane_scatter_plain` for CPU tensors.
+    tensors (each row summed in float32 in ascending ray order: the same
+    bits on every launch) and runs :func:`plane_scatter_plain` for CPU
+    tensors.
     """
     Rp = widx.shape[0]
     if Rp % MBLOCK or tuple(widx.shape) != (Rp,) or widx.dtype != torch.int32:
@@ -1009,18 +1030,41 @@ def plane_scatter(g: Tensor, widx: Tensor, n: Tensor, entries: Tensor,
                          f"{MAX_CLUSTER_SIZE}, got {S}")
     if any(t.device != g.device for t in (widx, n, entries)):
         raise ValueError("all plane scatter inputs must be on one device")
+    if not 1 <= C <= STREAM_MAX_CLUSTERS:
+        raise ValueError(f"C must be in [1, {STREAM_MAX_CLUSTERS}], got {C}")
     if g.device.type == "cpu":
         return plane_scatter_plain(g, widx, n, entries, C, S)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
-    if not (g.is_contiguous() and widx.is_contiguous()) or g.data_ptr() % 16:
-        raise ValueError("g and widx must be contiguous, g 16-byte aligned")
-    cm = _cluster_masks(n, entries, C)
+    if (not all(t.is_contiguous() for t in (g, widx, n, entries))
+            or g.data_ptr() % 16):
+        raise ValueError("plane scatter inputs must be contiguous, g 16-byte "
+                         "aligned")
     out = torch.empty((C * S, 4), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        PLANE_SCATTER.launch(cm.data_ptr(), B, widx.data_ptr(), g.data_ptr(),
-                             C, S, out.data_ptr())
+    _plane_scatter_passes(g, widx, n, entries, C, S, out,
+                          _scatter_scratch(B, C, g.device), 3)
     return out
+
+
+def _scatter_scratch(B: int, C: int, dev) -> Tuple[Tensor, Tensor, Tensor]:
+    """The plane scatter kernel's scratch: sorted keys (B * MBLOCK,),
+    per-block key counts (B,) and the (cluster, block) bitmap."""
+    return (torch.empty((B * MBLOCK,), dtype=torch.int64, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((C * (-(-B // 32)),), dtype=torch.int32, device=dev))
+
+
+def _plane_scatter_passes(g, widx, n, entries, C, S, out, scratch,
+                          passes: int) -> None:
+    """Launch the plane scatter's passes (bit 0: the keys, bit 1: the
+    sums; 3 is the function) on checked CUDA inputs. A single pass is for
+    timing it alone, with the scratch of an earlier launch."""
+    keys, nvalid, bitmap = scratch
+    with torch.cuda.device(g.device):
+        PLANE_SCATTER.launch(
+            n.data_ptr(), entries.data_ptr(), entries.shape[1], n.shape[0],
+            widx.data_ptr(), g.data_ptr(), C, S, keys.data_ptr(),
+            nvalid.data_ptr(), bitmap.data_ptr(), out.data_ptr(), passes)
 
 
 class _PlanesSelect(torch.autograd.Function):

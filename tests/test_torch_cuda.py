@@ -62,9 +62,11 @@ def test_masks_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize("stream", [False, True])
 def test_cast_kernels_match_plain(cuda, stream, edge_wildcard, S):
     """Depth, index and finish rows equal the plain version's on every
-    ray (on this frame no hit that the stream kernel's exit may drop can
-    win: tests/test_torch_stream.py); the stream kernel's walks reach at
-    most the listed entries of their chunk and test at most those."""
+    ray (on this frame no hit that the kernels' culls or the stream
+    kernel's exit may drop can win: tests/test_torch_stream.py); each
+    kernel's walks reach at most the listed entries of their chunk (the
+    resident walks, which have no exit, all of them) and test at most
+    those, and the sub-box cull tests at most S / 8 sub-boxes a cluster."""
     v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0)
     rc = p3t.create_raycaster(v, f, config=RayCastConfig(
         mxu_max_tris=0 if stream else 32_000, edge_wildcard=edge_wildcard,
@@ -82,12 +84,10 @@ def test_cast_kernels_match_plain(cuda, stream, edge_wildcard, S):
                 else (rk.RESIDENT, rk.cluster_cast_resident))
     args = (n, work) + ((bounds,) if stream else ()) + (
         rc.cbvh.w, rc.cbvh.fin, rays, 10.0, edge_wildcard)
-    kw = (dict(boxes=rc.cbvh.boxes, sub_boxes=rc.cbvh.sub_boxes) if stream
-          else {})
+    kw = dict(boxes=rc.cbvh.boxes, sub_boxes=rc.cbvh.sub_boxes)
     before = kern.launches
-    visits = torch.zeros(((n.shape[0] * rk.NCH, 3) if stream
-                          else n.shape[0] * rk.NCH),
-                         dtype=torch.int32, device=cuda)
+    visits = torch.zeros((n.shape[0] * rk.NCH, 3), dtype=torch.int32,
+                         device=cuda)
     got = fn(*args, visits=visits, **kw)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
@@ -96,19 +96,24 @@ def test_cast_kernels_match_plain(cuda, stream, edge_wildcard, S):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(visits.sum()) > 0
-    if not stream:  # the resident kernel visits every pair once
-        assert int(visits.sum()) == int(n.sum())
-    else:  # per chunk: tested <= reached <= its listed entries for each
-        # walk, sub-boxes tested <= S / 8 per cluster tested
-        listed = ((work[:, :, None] >> torch.arange(rk.NCH, device=cuda)) & 1)
-        live = torch.arange(work.shape[1], device=cuda)[None, :] < n[:, None]
-        per_chunk = (listed * live[:, :, None]).sum(dim=1).reshape(-1)
-        walks = rk.RCHUNK // rk.STREAM_WALK
-        assert bool((visits[:, 1] <= visits[:, 0]).all())
+    # per chunk: tested <= reached <= its listed entries for each walk,
+    # sub-boxes tested <= S / 8 per cluster tested
+    chunks = torch.arange(rk.NCH, device=cuda)
+    if stream:
+        listed = (work[:, :, None] >> chunks) & 1
+    else:
+        listed = ((work[:, :, None] & (rk.NCH - 1)) == chunks).int()
+    live = torch.arange(work.shape[1], device=cuda)[None, :] < n[:, None]
+    per_chunk = (listed * live[:, :, None]).sum(dim=1).reshape(-1)
+    walks = rk.RCHUNK // rk.STREAM_WALK
+    assert bool((visits[:, 1] <= visits[:, 0]).all())
+    if stream:
         assert bool((visits[:, 0] <= per_chunk * walks).all())
-        assert int(visits[:, 1].sum()) < int(visits[:, 0].sum())
-        assert bool((visits[:, 2] <= visits[:, 1] * (S // 8)).all())
-        assert int(visits[:, 2].sum()) < int(visits[:, 1].sum()) * (S // 8)
+    else:  # no exit: every walk reaches every pair of its chunk
+        assert torch.equal(visits[:, 0], per_chunk.int() * walks)
+    assert int(visits[:, 1].sum()) < int(visits[:, 0].sum())
+    assert bool((visits[:, 2] <= visits[:, 1] * (S // 8)).all())
+    assert int(visits[:, 2].sum()) < int(visits[:, 1].sum()) * (S // 8)
 
 
 @pytest.mark.parametrize("stream", [False, True])
@@ -184,21 +189,35 @@ def _sphere(n=32):
                                       + (z - 0.05) ** 2)).astype(np.float32)
 
 
-@pytest.mark.parametrize("size", ["small", "mid"])
-def test_plane_scatter_kernel_matches_plain(cuda, size):
-    """On a real stream list: the sphere soup under 64x64 rays (small) and
-    the bunny soup under 512x512 rays (mid)."""
-    if size == "small":
-        grid, cap, box = _sphere(), 8192, dict(lower=(-1, -1, -1),
-                                               upper=(1, 1, 1))
-        cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
-    else:
+@pytest.mark.parametrize("case", ["small", "mid", "unflagged", "long",
+                                  "s256"])
+def test_plane_scatter_kernel_matches_plain(cuda, case):
+    """On a real stream list: the sphere soup under 64x64 rays (small), the
+    bunny soup under 512x512 rays (mid); the small case with one ray's
+    winner moved to a cluster its chunk is not flagged for, which adds
+    nothing (unflagged); the sphere soup behind one large triangle that
+    wins thousands of rays of a 128x128 frame, a long run of one row
+    (long); the sphere soup in clusters of 256 (s256). Equal bits over two
+    launches, and relative error 1e-5 against the float64 plain version."""
+    box = dict(lower=(-1, -1, -1), upper=(1, 1, 1))
+    grid, cap, S = _sphere(), 8192, 128
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    if case == "mid":
         grid, cap, box = np.load(BUNNY), 32768, dict(lower=(0, 0, 0),
                                                      upper=(1, 1, 1))
         cam = camera_rays(512, 512, origin=(0.5, 0.5, -1.5),
                           look_at=(0.5, 0.5, 0.5), fov_y=35.0)
+    elif case == "long":
+        cam = camera_rays(128, 128, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    elif case == "s256":
+        S = 256
     soup = p3t.marching_cubes_soup(grid, 0.0, face_capacity=cap, **box).soup
-    bvh = build_mxu_clusters(soup, order="identity")
+    if case == "long":
+        big = torch.tensor([[[-0.3, -0.3, 0.9], [0.5, -0.3, 0.9],
+                             [0.1, 0.6, 0.9]]])
+        soup = torch.cat([soup, big.to(soup)])
+    bvh = build_mxu_clusters(soup.to(cuda), cluster_size=S,
+                             order="identity")
     o = torch.from_numpy(cam.origins).to(cuda)
     d = torch.from_numpy(cam.dirs).to(cuda)
     (_, sidx, _), (n, entries) = rk._cast_with_list(bvh, o, d, 10.0, True,
@@ -207,9 +226,16 @@ def test_plane_scatter_kernel_matches_plain(cuda, size):
     widx = torch.full((Rp,), -1, dtype=torch.int32, device=cuda)
     widx[:sidx.shape[0]] = sidx
     assert int((widx >= 0).sum()) > 100
+    C = bvh.num_clusters
+    if case == "long":
+        assert int((widx == soup.shape[0] - 1).sum()) >= 2000
+    if case == "unflagged":
+        cm = rk._cluster_masks(n, entries, C)
+        r = int((widx >= 0).nonzero()[0, 0])
+        b, ch = r // rk.MBLOCK, (r % rk.MBLOCK) // rk.RCHUNK
+        widx[r] = int((((cm[:, b] >> ch) & 1) == 0).nonzero()[0, 0]) * S + 3
     gen = torch.Generator(device=cuda).manual_seed(0)
     g = torch.randn((Rp, 4), generator=gen, device=cuda)
-    C, S = bvh.num_clusters, bvh.cluster_size
     before = rk.PLANE_SCATTER.launches
     got = rk.plane_scatter(g, widx, n, entries, C, S)
     again = rk.plane_scatter(g, widx, n, entries, C, S)
@@ -219,6 +245,9 @@ def test_plane_scatter_kernel_matches_plain(cuda, size):
     want = rk.plane_scatter_plain(g, widx, n, entries, C, S)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= 1e-5 and float(want.abs().max()) > 0
+    if case == "unflagged":  # the moved ray adds nothing
+        g[r] = 0.0
+        assert torch.equal(got, rk.plane_scatter(g, widx, n, entries, C, S))
 
 
 @pytest.mark.parametrize("case", ["pallas-32000", "pallas-0", "mxu"])

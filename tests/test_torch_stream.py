@@ -23,9 +23,16 @@ kernels with them on the card):
     on every ray;
   * where a hit does lie below its bound (the card tests' bunny frame has
     one ray through a vertex, nearly in two triangles' planes), it is
-    rounding noise by the float64 witness of ``stream_disputes``, which
-    settles such a ray and refuses a ray where a real hit was dropped.
+    rounding noise by the float64 witness of ``cast_disputes``, which
+    settles such a ray and refuses a ray where a real hit was dropped;
+  * the resident kernel walks its pairs with the same two culls and no
+    exit: every listed (ray, cluster) pair of the resident list with a hit
+    passes the box cull, and every hit triangle's sub-box the sub-box cull
+    (a later hit of the same t in list order must not lose to a skipped
+    earlier one), or the hit is noise by the float64 witness.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +49,7 @@ from tests.stream_cases import flat_case, pad_rays, rows
 from .test_torch_raycast import BUNNY, bunny_rays
 
 
+@functools.cache
 def ico_case():
     """The 1,280-face icosphere in Morton clusters of 16 under 2,500 rays
     from radius 3 and 64 axis-parallel rays from cluster box planes."""
@@ -61,13 +69,16 @@ def ico_case():
     return bvh, *pad_rays(o, d)
 
 
+@functools.cache
 def bunny_case():
     v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0, device="cpu")
     bvh = build_mxu_clusters(v[f.long()])
     return (bvh, *bunny_rays())
 
 
-CASES = {"bunny": bunny_case, "ico": ico_case, "flat": flat_case}
+# built once per process: the tests only read them
+CASES = {"bunny": bunny_case, "ico": ico_case,
+         "flat": functools.cache(flat_case)}
 
 
 def test_flat_boxes_lists_match_jax_and_zero_is_positive():
@@ -180,12 +191,67 @@ def test_box_cull_keeps_every_winner(case, edge_wildcard):
     assert 0.0 < float(enters.float().mean()) < 0.5
 
 
+@pytest.mark.parametrize("edge_wildcard", [False, True])
+@pytest.mark.parametrize("case", list(CASES))
+def test_resident_culls_keep_every_hit(case, edge_wildcard):
+    """The resident list: every listed (ray, cluster) pair with a hit below
+    max_dist passes the resident kernel's box cull, and every triangle of
+    it with a hit, not only the nearest, its sub-box cull, or that hit is
+    rounding noise by the float64 witness (``rk._witness``); the plain
+    cast's winners are among those hits, and the cull drops most listed
+    pairs."""
+    bvh, o, d = CASES[case]()
+    rays = rows(o, d)
+    n, pairs, _ = rk.work_lists(bvh.boxes, rays, 10.0, False)
+    S = bvh.cluster_size
+    live = torch.arange(pairs.shape[1]) < n[:, None]
+    blk, pos = live.nonzero(as_tuple=True)
+    word = pairs[blk, pos]
+    # every listed (ray, cluster) pair: a pair's chunk is 256 rays
+    ray = ((blk * rk.MBLOCK + (word & (rk.NCH - 1)) * rk.RCHUNK)[:, None]
+           + torch.arange(rk.RCHUNK)).reshape(-1)
+    c = (word >> 3).long().repeat_interleave(rk.RCHUNK)
+    hits = []
+    for s in range(0, ray.shape[0], 2048):
+        r, cc = ray[s:s + 2048], c[s:s + 2048]
+        ok, t = rk._triangle_tests(bvh.w[cc], rays[:, r][:, :, None],
+                                   edge_wildcard)
+        tq = (torch.where(ok, t, 3.0e38).abs()[..., 0].view(torch.int32)
+              & ~(S - 1)).view(torch.float32)
+        p, slot = (tq < 10.0).nonzero(as_tuple=True)
+        hits.append((r[p], cc[p], slot))
+    hr, hc, hs = (torch.cat(x) for x in zip(*hits))
+    _, idx, _ = rk.cluster_cast_plain(n, pairs, None, bvh.w, bvh.fin, rays,
+                                      10.0, edge_wildcard, with_fin=False)
+    hit = idx >= 0
+    assert 0.05 < float(hit.float().mean()) < 0.95
+    won = torch.zeros_like(hit)
+    won[hr[(hc * S + hs) == idx[hr].long()]] = True
+    assert torch.equal(won, hit)
+    ot, dt = torch.from_numpy(o)[hr], torch.from_numpy(d)[hr]
+    nsub = bvh.sub_boxes.shape[1]
+    kept = (rk._stream_box_enters(bvh.boxes[hc], ot, dt)
+            & rk._stream_box_enters(bvh.sub_boxes[hc, hs // (S // nsub)],
+                                    ot, dt))
+    q = (~kept).nonzero()[:, 0]
+    if q.numel():  # a culled hit must be noise
+        _, h, noise = rk._witness(bvh.w[hc[q]], rays[:, hr[q]][:, :, None],
+                                  edge_wildcard, 10.0)
+        at = torch.arange(q.numel())
+        assert bool(h[at, hs[q], 0].all())
+        assert bool(noise[at, hs[q], 0].all()), \
+            f"{int((~noise[at, hs[q], 0]).sum())} real hits culled"
+    enters = rk._stream_box_enters(bvh.boxes[c], torch.from_numpy(o)[ray],
+                                   torch.from_numpy(d)[ray])
+    assert 0.0 < float(enters.float().mean()) < 0.5
+
+
 def test_exit_drops_only_noise():
     """The card tests' bunny frame (128 x 96 rays, clusters of 128): the
     hits that lie below their entry's bound, which a warp's exit may drop,
     are on one ray through a mesh vertex, and each is float32 noise: its
     test fails in float64 on the same rows, or gives a float64 t more than
-    NOISE_REL away. ``stream_disputes`` settles that ray for a cast that
+    NOISE_REL away. ``cast_disputes`` settles that ray for a cast that
     keeps the nearest hit that is not noise, and refuses it for a cast that
     misses, as it refuses a hit ray turned into a miss."""
     v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0, device="cpu")
@@ -220,15 +286,15 @@ def test_exit_drops_only_noise():
     got[0][q] = tq.reshape(-1)[k]
     got[1][q] = int(c[k // S]) * S + k % S
     assert float(got[0][q]) > float(want[0][q])
-    rq, settled, clean = rk.stream_disputes(n, entries, bvh.w, rays, 10.0,
-                                            False, got, want)
+    rq, settled, clean = rk.cast_disputes(n, entries, True, bvh.w, rays,
+                                          10.0, False, got, want)
     assert rq.tolist() == [q] and bool(settled.all())
     assert torch.equal(clean, got[0][rq])
     # a miss there, or on a ray with a real hit, is not settled
     q2 = int((want[1] >= 0).nonzero()[0, 0])
     far = (got[0].clone(), got[1].clone())
     far[0][[q, q2]], far[1][[q, q2]] = 10.0, -1
-    rq, settled, _ = rk.stream_disputes(n, entries, bvh.w, rays, 10.0, False,
-                                        far, want)
+    rq, settled, _ = rk.cast_disputes(n, entries, True, bvh.w, rays, 10.0,
+                                      False, far, want)
     assert sorted(rq.tolist()) == sorted([q, q2])
     assert not bool(settled.any())
