@@ -42,7 +42,12 @@ events, and prints:
 
   * a ``stages`` JSON line: the paths' stage times;
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
-    error against its plain version, its time, the plain version's time
+    error against its plain version, its time per wrapper call (``ms``,
+    CUDA events around one call, the host's part included), its own device
+    time (``device_ms``: the profiler's device time of its kernels over
+    back-to-back calls, per call; ``device_ms_source`` says "events" where
+    the profiler saw none and events around the calls were taken instead),
+    the plain version's time
     (for the scalar kernels on all ``plain_rays`` of the large frame), its
     lower bound on this card and the time of one PyTorch call that computes
     the same function, where there is one. The work-list cull
@@ -94,9 +99,25 @@ LARGE_TRIS = BUNNY_COUNTS[1] * 4 ** LEVELS
 SLAB_OPS = 25
 TRI_OPS = 46
 # fp32 operations per (chunk, cluster) cell of the work-list cull: per axis
-# 4 subtractions, 8 products and 14 min / max, then 4 to combine the axes,
-# 3 compares, the clamp and the min of the bound
-CULL_OPS_PER_CELL = 3 * (4 + 8 + 14) + 4 + 3 + 2
+# 2 subtractions, the 4 corner products and 6 min / max (csrc/stream_cull.cu
+# shows that these give the plain version's 4 subtractions, 8 products and
+# 14 min / max bit for bit), then 4 to combine the axes, 3 compares, the
+# clamp and the min of the bound
+CULL_OPS_PER_CELL = 3 * (2 + 4 + 6) + 4 + 3 + 2
+# the mask kernel against its plain version at shapes its tiling finds hard
+# beside the paths' grids: rows of Z - 1 bytes not a multiple of 4, Z < 16,
+# Y of 2 (values at the threshold, +-inf and NaN among normal ones)
+MASK_EDGE_SHAPES = ((3, 7, 17), (5, 2, 3), (2, 3, 66))
+# kernel symbols each wrapper launches, for the profiler's device time
+DEVICE_KERNELS = {
+    "mc_masks": ("mc_masks_kernel",),
+    "stream_cull": ("cull_kernel",),
+    "cluster_cast_resident": ("walk_kernel",),
+    "cluster_cast_stream": ("walk_kernel",),
+    "plane_scatter": ("key_kernel", "sum_kernel", "Memset"),
+    "cluster_scalar_ordered": ("cluster_scalar_kernel",),
+    "cluster_scalar": ("cluster_scalar_kernel",),
+}
 # large-mesh frame against the bunny's: shares that must agree, against the
 # brute force (Möller-Trumbore, as the scalar tier) on hit/miss, face and
 # depth; against the resident cast (Plücker sign tests, which can miss both
@@ -152,6 +173,39 @@ def event_ms(fn, iters=10, warmup=2):
     """Median milliseconds of fn() between two CUDA events."""
     from primitive3d_tpu_torch.core.timer import time_fn
     return time_fn(fn, iters=iters, warmup=warmup, device="cuda") * 1e3
+
+
+def device_ms(fn, name, calls=20):
+    """Device milliseconds per call of ``fn``, a wrapper that launches the
+    kernel ``name``: the device time of its kernels (DEVICE_KERNELS) that
+    ``torch.profiler`` records over ``calls`` back-to-back calls, divided by
+    ``calls``. Where the profiler records none, CUDA events around the
+    ``calls`` calls, divided by ``calls``. Returns (ms, source)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in DEVICE_KERNELS[name])):
+            us += getattr(e, "self_device_time_total", 0.0) or 0.0
+            launches += e.count
+    if us > 0 and launches >= calls:
+        return us / 1e3 / calls, "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls, "events"
 
 
 def backward_ms(make_loss, iters=5, warmup=1):
@@ -655,6 +709,8 @@ def main() -> int:
               for a, b in ((cx, px), (cy, py), (cz, pz), (cm, pm)))
     check(err == 0, "mc_masks differs from its plain version")
     ms = event_ms(lambda: mk.fused_masks(sphere_dev, 0.0), iters=20)
+    dms, dsrc = device_ms(lambda: mk.fused_masks(sphere_dev, 0.0),
+                          mk.KERNEL.name)
     pms = event_ms(lambda: mk.fused_masks_plain(sphere_dev, 0.0),
                    iters=5)
     mbytes = nbytes(sphere_dev, cx, cy, cz, cm)
@@ -662,9 +718,9 @@ def main() -> int:
         name=mk.KERNEL.name, route="cuda",
         source="primitive3d_tpu_torch/csrc/mc_masks.cu",
         replaces=mk.KERNEL.replaces, launches=launches[mk.KERNEL.name],
-        max_abs_err=float(err), ms=ms, plain_ms=pms,
-        bound_ms=mbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None))
+        max_abs_err=float(err), ms=ms, device_ms=dms, device_ms_source=dsrc,
+        plain_ms=pms, bound_ms=mbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None))
     # the other grid the paths launch it on: the bunny's 66^3 (4 of its 7
     # launches; the 256^3 sphere takes the other 3)
     bunny_dev = torch.from_numpy(bunny).to(dev)
@@ -673,10 +729,29 @@ def main() -> int:
         (bx, by, bz, bm), mk.fused_masks_plain(bunny_dev, 0.0))),
         "mc_masks differs from its plain version at 66^3")
     ms66 = event_ms(lambda: mk.fused_masks(bunny_dev, 0.0), iters=20)
+    dms66, dsrc66 = device_ms(lambda: mk.fused_masks(bunny_dev, 0.0),
+                              mk.KERNEL.name)
     b66 = nbytes(bunny_dev, bx, by, bz, bm) / HBM_BYTES_PER_S * 1e3
-    log(f"mc_masks 256^3: exact; {ms:.4f} ms (plain {pms:.3f} ms), bound "
+    # edge shapes: two launches equal to the plain version
+    rng = np.random.default_rng(8)
+    for shape in MASK_EDGE_SHAPES:
+        g_e = rng.standard_normal(shape).astype(np.float32)
+        flat = g_e.reshape(-1)
+        flat[::7], flat[3::11], flat[5::13], flat[2::17] = (
+            0.0, np.inf, -np.inf, np.nan)
+        g_e = torch.from_numpy(g_e).to(dev)
+        want = mk.fused_masks_plain(g_e, 0.0)
+        for _ in range(2):
+            check(all(torch.equal(a, b) for a, b in zip(
+                mk.fused_masks(g_e, 0.0), want)),
+                f"mc_masks differs from its plain version at {shape}")
+    log(f"mc_masks 256^3: exact; {ms:.4f} ms per call, device {dms:.4f} ms "
+        f"({dsrc}) (plain {pms:.3f} ms), bound "
         f"{mbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; 66^3: exact; "
-        f"{ms66:.4f} ms, bound {b66:.5f} ms")
+        f"{ms66:.4f} ms per call, device {dms66:.4f} ms ({dsrc66}), bound "
+        f"{b66:.5f} ms; exact over two launches at "
+        f"{', '.join(str(x) for x in MASK_EDGE_SHAPES)} (values at the "
+        f"threshold, +-inf, NaN)")
 
     def same_lists(got, want):
         """Bit equality of two (n, work, bounds) lists."""
@@ -745,6 +820,8 @@ def main() -> int:
         B = n.shape[0]
         cms = event_ms(lambda: rk.work_lists(bvh.boxes, rays, rc.max_dist,
                                              rc.stream), iters=20)
+        cdms, cdsrc = device_ms(lambda: rk.work_lists(
+            bvh.boxes, rays, rc.max_dist, rc.stream), rk.CULL.name)
         cpms = event_ms(lambda: rk.work_lists_plain(
             bvh.boxes, rays, rc.max_dist, rc.stream), iters=3, warmup=1)
         # the cull's bound: the rays' origins and directions read once, the
@@ -763,13 +840,14 @@ def main() -> int:
             name=rk.CULL.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/stream_cull.cu",
             replaces=rk.CULL.replaces, launches=launches[rk.CULL.name],
-            max_abs_err=0.0, ms=cms, plain_ms=cpms,
-            bound_ms=max(ct_ops, ct_bytes),
+            max_abs_err=0.0, ms=cms, device_ms=cdms, device_ms_source=cdsrc,
+            plain_ms=cpms, bound_ms=max(ct_ops, ct_bytes),
             bound_by="operations" if ct_ops >= ct_bytes else "bytes",
             library_ms=None)
         log(f"stream_cull ({name}, {'stream' if rc.stream else 'resident'} "
             f"tier): lists equal the plain version's bit for bit; {cms:.4f} "
-            f"ms (plain {cpms:.3f} ms); {B} blocks x {C} clusters, "
+            f"ms per call, device {cdms:.4f} ms ({cdsrc}) (plain {cpms:.3f} "
+            f"ms); {B} blocks x {C} clusters, "
             f"{int(n.sum())} list entries, bound {max(ct_ops, ct_bytes):.4f} "
             f"ms (operations {ct_ops:.4f}, bytes {ct_bytes:.4f})")
 
@@ -795,6 +873,7 @@ def main() -> int:
             flagged = int(n.sum())
         S = bvh.cluster_size
         ms = event_ms(lambda: fn(*args, **kw))
+        dms, dsrc = device_ms(lambda: fn(*args, **kw), kern.name)
         pms = event_ms(lambda: rk.cluster_cast_plain(
             n, work, bounds, bvh.w, bvh.fin, rays, rc.max_dist),
             iters=3, warmup=1)
@@ -819,15 +898,16 @@ def main() -> int:
             name=kern.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/cluster_cast.cu",
             replaces=kern.replaces, launches=launches[kern.name],
-            max_abs_err=err, ms=ms, plain_ms=pms,
-            bound_ms=max(t_ops, t_bytes),
+            max_abs_err=err, ms=ms, device_ms=dms, device_ms_source=dsrc,
+            plain_ms=pms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
         units = B * rk.NCH * (rk.RCHUNK // rk.STREAM_WALK)
         log(f"{kern.name} ({name}): depth, index and finish rows equal the "
             f"plain version's on all {rays.shape[1]} rays but {nset} settled "
-            f"by the float64 witness; {ms:.3f} ms "
-            f"(plain {pms:.2f} ms); {B} blocks, {int(n.sum())} list "
+            f"by the float64 witness; {ms:.3f} ms per call, device "
+            f"{dms:.4f} ms ({dsrc}) (plain {pms:.2f} ms); {B} blocks, "
+            f"{int(n.sum())} list "
             f"entries, {flagged} (chunk, cluster) visits listed; the "
             f"kernel's warps reached {reached} listed visits "
             f"({reached / units:.2f} per warp) and tested {tested} "
@@ -902,6 +982,8 @@ def main() -> int:
                          atol=1e-6 * float(p4.abs().max())),
           "index_add_ differs from the plain plane scatter")
     ms = event_ms(lambda: rk.plane_scatter(*args), iters=20)
+    dms, dsrc = device_ms(lambda: rk.plane_scatter(*args),
+                          rk.PLANE_SCATTER.name)
     # each pass alone, on the scratch of a full launch: the keys (sort per
     # block, bitmap) and the sums; the full time holds the allocations too
     scratch = rk._scatter_scratch(n4.shape[0], C4, dev)
@@ -926,14 +1008,15 @@ def main() -> int:
         source="primitive3d_tpu_torch/csrc/plane_scatter.cu",
         replaces=rk.PLANE_SCATTER.replaces,
         launches=launches[rk.PLANE_SCATTER.name], max_abs_err=err, ms=ms,
-        plain_ms=pms, bound_ms=sbytes / HBM_BYTES_PER_S * 1e3,
+        device_ms=dms, device_ms_source=dsrc, plain_ms=pms, bound_ms=sbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=lms))
     log(f"plane_scatter passes (flagship backward): keys (the list table, "
         f"a sort per 2048-ray block, the bitmap's zero fill) "
         f"{pass_ms[0]:.4f} ms, sums {pass_ms[1]:.4f} ms")
     log(f"plane_scatter (flagship backward): equal bits over two launches, "
         f"max err {err:.3g} (relative {rel:.3g}); {ms:.4f} ms, the scratch "
-        f"and both passes (plain {pms:.3f} ms, index_add_ {lms:.4f} ms); "
+        f"and both passes, device {dms:.4f} ms ({dsrc}; the bitmap's memset "
+        f"and both passes) (plain {pms:.3f} ms, index_add_ {lms:.4f} ms); "
         f"{C4} clusters x {B4} blocks, {hit_rays} rays with a winner, "
         f"{int(n4.sum())} list entries, bound "
         f"{sbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
@@ -954,7 +1037,9 @@ def main() -> int:
         dk, ik = fn(tree_l, bvh_l, rays_l, rc_l.max_dist, counts=counts)
         ms = event_ms(lambda: fn(tree_l, bvh_l, rays_l, rc_l.max_dist),
                       iters=10, warmup=2)
-        scalar[ordered] = (dk, ik, ms, counts.to(torch.int64))
+        dms = device_ms(lambda: fn(tree_l, bvh_l, rays_l, rc_l.max_dist),
+                        kern.name, calls=10)
+        scalar[ordered] = (dk, ik, ms, counts.to(torch.int64), dms)
 
     # one bound for both rows, the same function: the work that the frame's
     # result says any walk of the cluster boxes and sub-boxes must do,
@@ -976,7 +1061,7 @@ def main() -> int:
         f"{t_ops:.4f}, bytes {t_bytes:.4f})")
     hit_o = ik_o >= 0
     for kern, ordered in ((rk.SCALAR_ORDERED, True), (rk.SCALAR, False)):
-        dk, ik, ms, c64 = scalar[ordered]
+        dk, ik, ms, c64, (dms, dsrc) = scalar[ordered]
         full = torch.zeros((R_b, 4), dtype=torch.int32, device=dev)
         ta = torch.cuda.Event(enable_timing=True)
         tb = torch.cuda.Event(enable_timing=True)
@@ -1006,13 +1091,14 @@ def main() -> int:
             name=kern.name, route="cuda",
             source="primitive3d_tpu_torch/csrc/cluster_scalar.cu",
             replaces=kern.replaces, launches=launches[kern.name],
-            max_abs_err=err, ms=ms, plain_ms=pms, plain_rays=R_b,
-            bound_ms=bound_l,
+            max_abs_err=err, ms=ms, device_ms=dms, device_ms_source=dsrc,
+            plain_ms=pms, plain_rays=R_b, bound_ms=bound_l,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
         log(f"{kern.name} (large mesh, {R_b} rays, {C_l} clusters of "
             f"{S_l}): equals its plain version bit for bit on all {R_b} "
-            f"rays; {ms:.3f} ms (plain, whole frame, {pms:.1f} ms); walk: "
+            f"rays; {ms:.3f} ms per call, device {dms:.4f} ms ({dsrc}) "
+            f"(plain, whole frame, {pms:.1f} ms); walk: "
             f"{nodes} nodes entered, {boxes} child box, {subs} sub-box and "
             f"{tris} triangle tests; per hit ray [nodes, boxes, sub-boxes, "
             f"triangles] {[round(x, 2) for x in per['hit']]}, per missing "
@@ -1022,7 +1108,8 @@ def main() -> int:
             f"without pruning: {fslabs / slabs_n:.2f}x and "
             f"{int(f64[:, 3].sum()) / tris_n:.2f}x); {ms / bound_l:.1f}x the "
             f"bound")
-    (dk_o, ik_o, ms_o, _), (dk_u, ik_u, ms_u, _) = scalar[True], scalar[False]
+    (dk_o, ik_o, ms_o, _, _), (dk_u, ik_u, ms_u, _, _) = (
+        scalar[True], scalar[False])
 
     # the rays on which the large frame disagrees with a level-0 yardstick:
     # the 27M mesh itself brute-forced on them, every triangle row in sorted

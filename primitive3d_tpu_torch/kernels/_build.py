@@ -49,13 +49,17 @@ class Kernel:
         # cudaGetLastError() after its launch
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
+        self._fn = None  # the ctypes entry point, resolved at first launch
         KERNELS.append(self)
 
     def launch(self, *args) -> None:
         """Launch on the current stream; raise if CUDA refused the launch."""
-        fn = getattr(load(self.source), self.name)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
+        fn = self._fn
+        if fn is None:  # build, load and bind once per process
+            fn = getattr(load(self.source), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(

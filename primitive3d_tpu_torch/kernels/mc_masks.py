@@ -9,6 +9,8 @@ of every cube, in their valid shapes:
 
 ``fused_masks`` launches the kernel for a CUDA tensor and runs
 ``fused_masks_plain`` for a CPU tensor; there is no fallback between them.
+On the card the four outputs are views of one byte buffer (the callers only
+read them), and rows may be at most ``MAX_Z`` cells long.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import torch
 from . import _build
 
 Tensor = torch.Tensor
+# longest z-row the kernel takes: three shared-memory buffers of two rows
+# must fit a block (csrc/mc_masks.cu MAX_Z)
+MAX_Z = 32768
 
 KERNEL = _build.Kernel(
     "mc_masks", "mc_masks.cu",
@@ -66,11 +71,22 @@ def fused_masks(density: Tensor, thresh: float
         raise ValueError(f"unsupported device {density.device}")
     if not density.is_contiguous():
         raise ValueError("density must be contiguous")
+    if Z > MAX_Z:
+        raise ValueError(f"the mask kernel takes z-rows of at most {MAX_Z} "
+                         f"cells, got {Z}")
+    shapes = ((X - 1, Y, Z), (X, Y - 1, Z), (X, Y, Z - 1),
+              (X - 1, Y - 1, Z - 1))
+    # one allocation, each output starting on a 16-byte boundary
+    sizes = [a * b * c for a, b, c in shapes]
+    offs = [0]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + -(-n // 16) * 16)
+    buf = torch.empty(offs[-1] + sizes[-1], dtype=torch.uint8,
+                      device=density.device)
+    cx, cy, cz, cm = (buf[o:o + n].view(sh)
+                      for o, n, sh in zip(offs, sizes, shapes))
+    cx, cy, cz = cx.view(torch.int8), cy.view(torch.int8), cz.view(torch.int8)
     dev = density.device
-    cx = torch.empty((X - 1, Y, Z), dtype=torch.int8, device=dev)
-    cy = torch.empty((X, Y - 1, Z), dtype=torch.int8, device=dev)
-    cz = torch.empty((X, Y, Z - 1), dtype=torch.int8, device=dev)
-    cm = torch.empty((X - 1, Y - 1, Z - 1), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(density.data_ptr(), float(np.float32(thresh)), X, Y, Z,
                       cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),

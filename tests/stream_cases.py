@@ -65,3 +65,64 @@ def rows(o, d):
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     return torch.cat([d, torch.linalg.cross(o, d, dim=-1), o],
                      dim=1).T.contiguous()
+
+
+CULL_CASES = ("straddle", "zero_dir", "huge", "degenerate", "nan", "none",
+              "all")
+
+
+def cull_case(name, C=96, seed=0):
+    """Boxes (C, 6) and 2,048 rays (one work-list block, eight chunks) for
+    the cull, as numpy float32, each case aimed at one hazard of the
+    kernel's four-corner slab test:
+
+    * straddle: every chunk's directions straddle zero on x or y;
+    * zero_dir: chunks with a direction component of exactly +0.0 or
+      -0.0 (1/d clipped to +-1e18) beside ordinary ones;
+    * huge: boxes and origins at +-1e37 and +-3e38 (differences that
+      overflow to +-inf);
+    * degenerate: point boxes (hi == lo) and flat boxes among the rest;
+    * nan: a NaN box coordinate and a chunk with a NaN direction;
+    * none: every box behind the rays or past max_dist 10 (n = 0);
+    * all: boxes that every ray of every chunk enters (n = C or 8 C).
+    """
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-1.0, 1.0, (C, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.05, 0.6, (C, 3))], 1)
+    boxes[::4, [2, 5]] -= 10.0  # behind the rays: never flagged
+    o = np.tile(np.float32([0.0, 0.0, -3.0]), (2048, 1))
+    o += rng.uniform(-0.2, 0.2, (2048, 3))
+    d = np.stack([rng.uniform(-0.4, 0.4, 2048), rng.uniform(-0.4, 0.4, 2048),
+                  np.ones(2048)], 1)
+    if name == "straddle":
+        d[:, :2] = rng.uniform(-0.05, 0.05, (2048, 2))
+    elif name == "zero_dir":
+        d[0:256, 0] = 0.0
+        d[256:512, 1] = -0.0
+        d[512:768, :2] = 0.0
+        d[768:1024, 0] = np.where(np.arange(256) % 2, 0.0, -0.0)
+    elif name == "huge":
+        boxes[: C // 4] *= 1e37
+        boxes[C // 4: C // 2, [0, 3]] = [-3e38, 3e38]
+        boxes[C // 2: C // 2 + 4, [2, 5]] = [3e38, 3e38]
+        o[0:256] = [1e37, -1e37, -3e38]
+        o[256:512, 2] = 3e38
+        d[512:768] = [1e-30, -1e-30, 1.0]
+    elif name == "degenerate":
+        boxes[::3, 3:] = boxes[::3, :3]
+        boxes[1::5, 5] = boxes[1::5, 2]
+    elif name == "nan":
+        boxes[3, 1] = np.nan
+        boxes[7, 4] = np.nan
+        d[300] = [np.nan, 0.0, 1.0]
+        o[1500, 2] = np.nan
+    elif name == "none":
+        boxes[:, 2] = rng.uniform(-20.0, -10.0, C)
+        boxes[:, 5] = boxes[:, 2] + 1.0
+        boxes[: C // 2, 2] = 20.0
+        boxes[: C // 2, 5] = 21.0
+    elif name == "all":
+        boxes[:, :3] = -5.0 - rng.uniform(0.0, 1.0, (C, 3))
+        boxes[:, 3:] = 5.0 + rng.uniform(0.0, 1.0, (C, 3))
+    return (boxes.astype(np.float32), o.astype(np.float32),
+            d.astype(np.float32))

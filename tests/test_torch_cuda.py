@@ -30,7 +30,8 @@ from primitive3d_tpu_torch.kernels import mc_masks as mk
 from primitive3d_tpu_torch.kernels import raycast_kernel as rk
 from primitive3d_tpu_torch.raycast import ClusterRayCaster
 from primitive3d_tpu_torch.render.camera import camera_rays
-from tests.stream_cases import flat_case, rows
+from tests.mask_cases import special_grid
+from tests.stream_cases import CULL_CASES, cull_case, flat_case, rows
 
 BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data", "bunny.npy")
@@ -45,16 +46,26 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 2), (20, 23, 29), (66, 66, 66)])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (20, 23, 29), (66, 66, 66),
+                                   (2, 3, 66), (5, 2, 3), (3, 7, 17),
+                                   (9, 70, 33), (3, 512, 512), (4, 3, 4099),
+                                   (200, 100, 101), (130, 96, 128)])
 def test_masks_kernel_matches_plain(cuda, shape):
-    rng = np.random.default_rng(sum(shape))
-    grid = torch.from_numpy(
-        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    """Equal masks over two launches, at shapes the kernel's tiling finds
+    hard: X, Y or Z of 2, rows of Z - 1 bytes that are not a multiple of 4,
+    Z < 16, tiles of many rows, a 512-wide slice (tiles of a few rows),
+    rows longer than one tile's 4096 loaded cells, and grids too large for
+    one-slice blocks (several slices a block, with scalar and with 16-byte
+    loads); values at the threshold, +-inf and NaN."""
+    grid = torch.from_numpy(special_grid(shape, 0.1, sum(shape))).to(cuda)
     before = mk.KERNEL.launches
     got = mk.fused_masks(grid, 0.1)
-    assert mk.KERNEL.launches == before + 1
-    for g, w in zip(got, mk.fused_masks_plain(grid, 0.1)):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    again = mk.fused_masks(grid, 0.1)
+    torch.cuda.synchronize()
+    assert mk.KERNEL.launches == before + 2
+    for g, a, w in zip(got, again, mk.fused_masks_plain(grid, 0.1)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w) and torch.equal(a, w)
 
 
 @pytest.mark.parametrize("S", [128, 256])
@@ -117,13 +128,21 @@ def test_cast_kernels_match_plain(cuda, stream, edge_wildcard, S):
 
 
 @pytest.mark.parametrize("stream", [False, True])
-@pytest.mark.parametrize("mesh", ["bunny", "flat"])
+@pytest.mark.parametrize("mesh", ["bunny", "flat", *CULL_CASES, "C1", "C257",
+                                  "C32767"])
 def test_cull_kernel_matches_plain(cuda, mesh, stream):
     """The cull kernel's (n, work, bounds) equal the plain lists bit for
-    bit (the bounds as int32 bits: a zero is +0.0 in both) on the bunny
-    under 128x96 rays and on the cube of flat cluster boxes with rays from
-    box planes and a zero bound (tests/test_torch_stream.py); then the
-    stream cast on the cube equals its plain version."""
+    bit over two launches (the bounds as int32 bits: a zero is +0.0 in
+    both): on the bunny under 128x96 rays; on the cube of flat cluster
+    boxes with rays from box planes and a zero bound
+    (tests/test_torch_stream.py), where the stream cast then equals its
+    plain version; on tests/stream_cases.py's ``cull_case`` hazards of the
+    four-corner slab test (directions straddling zero, zero direction
+    components, coordinates at +-1e37 and +-3e38, degenerate boxes, NaN,
+    rows with nothing and with everything flagged); and at C = 1, 257 and
+    32,767 clusters (the stream tier's largest, its shared memory near a
+    block's limit) with more than 256 flagged keys a row (the sort's
+    bitonic path)."""
     if mesh == "bunny":
         v, f = p3t.marching_cubes(np.load(BUNNY), 0.0, scale=1.0)
         bvh = build_mxu_clusters(v[f.long()])
@@ -133,23 +152,42 @@ def test_cull_kernel_matches_plain(cuda, mesh, stream):
         pad = (-o.shape[0]) % rk.MBLOCK
         o = np.concatenate([o, np.zeros((pad, 3), np.float32)])
         d = np.concatenate([d, np.ones((pad, 3), np.float32)])
-    else:
+        boxes = bvh.boxes
+    elif mesh == "flat":
         bvh, o, d = flat_case()
         bvh = type(bvh)(*(t.to(cuda) for t in bvh))
+        boxes = bvh.boxes
+    else:
+        C = int(mesh[1:]) if mesh.startswith("C") else 96
+        case = "straddle" if mesh.startswith("C") else mesh
+        bx, o, d = cull_case(case, C=C, seed=C)
+        if mesh.startswith("C"):  # the first box in front of the rays
+            bx[0, [2, 5]] += 10.0
+        if mesh == "C32767":  # boxes that most chunks enter
+            bx[:, 3:] += 2.0
+        boxes = torch.from_numpy(bx).to(cuda)
     rays = rows(o, d).to(cuda)
     before = rk.CULL.launches
-    got = rk.work_lists(bvh.boxes, rays, 10.0, stream)
+    got = rk.work_lists(boxes, rays, 10.0, stream)
+    again = rk.work_lists(boxes, rays, 10.0, stream)
     torch.cuda.synchronize()
-    assert rk.CULL.launches == before + 1
-    want = rk.work_lists_plain(bvh.boxes, rays, 10.0, stream)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert rk.CULL.launches == before + 2
+    want = rk.work_lists_plain(boxes, rays, 10.0, stream)
+    for g in (got, again):
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+        if stream:
+            assert torch.equal(g[2].view(torch.int32),
+                               want[2].view(torch.int32))
+        else:
+            assert g[2] is None and want[2] is None
     if stream:
-        assert torch.equal(got[2].view(torch.int32),
-                           want[2].view(torch.int32))
-        assert bool((want[2] == 0).any()) or mesh == "bunny"
+        assert bool((want[2] == 0).any()) or mesh != "flat"
+    if mesh == "none":
+        assert int(got[0].sum()) == 0
     else:
-        assert got[2] is None and want[2] is None
-    assert int(got[0].sum()) > 0
+        assert int(got[0].sum()) > 0
+    if mesh == "C32767" and stream:
+        assert int(got[0].max()) > 256
     if stream and mesh == "flat":
         n, entries, sbound = got
         out = rk.cluster_cast_stream(n, entries, sbound, bvh.w, bvh.fin,

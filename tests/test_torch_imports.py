@@ -1,8 +1,10 @@
 """The PyTorch port never imports JAX or the JAX package.
 
-An AST check of every module of ``primitive3d_tpu_torch`` and of
-``chip_smoke.py``: no ``import jax``, ``jaxlib`` or ``primitive3d_tpu``
-(relative imports stay inside the port). A check of ``sys.modules`` cannot
+An AST check of every module of ``primitive3d_tpu_torch``, of
+``chip_smoke.py``, ``tools/torch_kernel_ab.py`` and the card tests'
+helpers (``tests/mask_cases.py``, ``tests/stream_cases.py``): no ``import
+jax``, ``jaxlib`` or ``primitive3d_tpu`` (relative imports stay inside the
+port). A check of ``sys.modules`` cannot
 work here, because the test process imports JAX for the parity tests.
 """
 import ast
@@ -15,7 +17,10 @@ FORBIDDEN = {"jax", "jaxlib", "primitive3d_tpu"}
 
 
 def _port_files():
-    out = ["chip_smoke.py"]
+    # chip_smoke.py, the card tool and the card tests' helpers run where
+    # JAX is not installed
+    out = ["chip_smoke.py", "tools/torch_kernel_ab.py", "tests/mask_cases.py",
+           "tests/stream_cases.py"]
     for dirpath, _, names in os.walk(os.path.join(ROOT,
                                                   "primitive3d_tpu_torch")):
         out += [os.path.relpath(os.path.join(dirpath, n), ROOT)

@@ -20,6 +20,7 @@ from primitive3d_tpu.kernels.mc_masks import fused_masks as jax_fused_masks
 from primitive3d_tpu.ops import mc_tables as jax_tables
 from primitive3d_tpu_torch.kernels import mc_masks as port_masks
 from primitive3d_tpu_torch.ops import mc_tables as port_tables
+from tests.mask_cases import special_grid
 
 BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data", "bunny.npy")
@@ -56,10 +57,15 @@ def test_tables_equal_jax(name):
 
 @pytest.mark.parametrize("shape,thresh", [((20, 23, 29), 0.1),
                                           ((7, 5, 9), -0.3),
-                                          ((2, 2, 2), 0.0)])
+                                          ((2, 2, 2), 0.0),
+                                          ((2, 3, 66), 0.1),
+                                          ((5, 2, 3), 0.0),
+                                          ((3, 7, 17), -0.3)])
 def test_masks_match_jax_kernel(shape, thresh):
-    rng = np.random.default_rng(sum(shape))
-    grid = rng.standard_normal(shape).astype(np.float32)
+    """The shapes the card kernel's tiling finds hard (X, Y or Z of 2;
+    rows of Z - 1 bytes that are not a multiple of 4), with values at the
+    threshold, +-inf and NaN."""
+    grid = special_grid(shape, thresh, sum(shape))
     want = jax_fused_masks(jnp.asarray(grid), jnp.float32(thresh),
                            interpret=True)
     before = port_masks.KERNEL.launches

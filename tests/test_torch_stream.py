@@ -32,6 +32,7 @@ kernels with them on the card):
     earlier one), or the hit is noise by the float64 witness.
 """
 import functools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +45,8 @@ from primitive3d_tpu_torch.bvh.clusters import build_mxu_clusters
 from primitive3d_tpu_torch.kernels import raycast_kernel as rk
 from primitive3d_tpu_torch.render.camera import camera_rays
 from tests.oracles.raycast_numpy import icosphere
-from tests.stream_cases import flat_case, pad_rays, rows
+from tests.stream_cases import (CULL_CASES, cull_case, flat_case, pad_rays,
+                                rows)
 
 from .test_torch_raycast import BUNNY, bunny_rays
 
@@ -125,6 +127,41 @@ def test_flat_boxes_lists_match_jax_and_zero_is_positive():
         assert torch.equal(pairs[b, :int(nr[b])].long(), want)
         tail = pairs[b, int(nr[b]):].long()
         assert bool((tail[1:] > tail[:-1]).all())
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_cases_match_jax(case):
+    """``work_lists_plain`` against the JAX package's plain-XLA lists on the
+    cases whose hazards the cull kernel's four-corner slab test must meet
+    (tests/stream_cases.py ``cull_case``; the card tests hold the kernel to
+    the same plain lists): n and the words or pairs exactly, the stream
+    bounds by value (XLA's max leaves a zero's sign to the backend)."""
+    boxes, o, d = cull_case(case)
+    C = boxes.shape[0]
+    rays = rows(o, d)
+    bt = torch.from_numpy(boxes)
+    jb = jnp.asarray(boxes)
+    rint = jax_rk._ray_intervals(jnp.asarray(o), jnp.asarray(d), 1, rk.NCH,
+                                 rk.RCHUNK)
+    n, entries, sbound = rk.work_lists_plain(bt, rays, 10.0, True)
+    nj, ej, bj = jax_rk._stream_entries(jb, rint, 10.0, rk.NCH)
+    np.testing.assert_array_equal(np.asarray(nj).reshape(-1), n.numpy())
+    np.testing.assert_array_equal(np.asarray(ej)[:, 0], entries.numpy())
+    np.testing.assert_array_equal(np.asarray(bj)[:, 0], sbound.numpy())
+    nr, pairs, none = rk.work_lists_plain(bt, rays, 10.0, False)
+    nj, pj, _, _ = jax_rk._mxu_prep(
+        types.SimpleNamespace(boxes=jb, num_clusters=C), jnp.asarray(o),
+        jnp.asarray(d), 10.0, False)
+    assert none is None
+    np.testing.assert_array_equal(np.asarray(nj).reshape(-1), nr.numpy())
+    np.testing.assert_array_equal(np.asarray(pj)[:, 0], pairs.numpy())
+    flagged = int(n[0])
+    if case == "none":
+        assert flagged == 0 and int(nr[0]) == 0
+    elif case == "all":
+        assert flagged == C and int(nr[0]) == C * rk.NCH
+    else:
+        assert 0 < flagged < C and 0 < int(nr[0]) < C * rk.NCH
 
 
 def listed_hits(bvh, o, d, edge_wildcard, max_dist=10.0):
