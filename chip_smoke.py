@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of ``primitive3d_tpu_torch/csrc`` with nvcc and
-drives two paths through the entry points a user calls, each with the
+drives four paths through the entry points a user calls, each with the
 kernel launch counts set to 0 just before it and read just after:
 
   * the serving path (marching cubes -> cluster ray caster -> work-list
@@ -26,7 +26,20 @@ kernel launch counts set to 0 just before it and read just after:
     past the stream tier's 32,767, under a 32-wide box tree that one warp
     per ray walks), cast under the bunny's 512x512 camera; then
     ``cast_clusters(..., ordered=False)`` and ``cast_clusters_diff``
-    (forward and backward) on the same mesh and rays.
+    (forward and backward) on the same mesh and rays;
+  * the marching-tetrahedra path, plain PyTorch that launches no kernel of
+    ``csrc/`` (its launch counts must stay 0): the eager call with
+    ``tet_idx`` and the gradient of sum(v ** 2) on the tet fixture
+    (``examples/data/tetrahedra``, 12,045 tets -> 4,650 / 9,296), held
+    against the same on the CPU; BENCH_r05.json's 128^3 Kuhn lattice
+    (12,290,298 tets, sphere SDF of radius 32) in the compacted sort tier
+    (57,830 / 115,656, the JAX package's counts), the lattice tier with and
+    without the points (equal to it) and the eager sort over all
+    73,741,788 edges (equal once trimmed); ``save_mesh`` from the card's
+    tensors through ``load_mesh`` and ``native.save_ply`` (the same
+    bytes); and ``native.build_lbvh`` of the bunny mesh on the host,
+    walked on the card by ``bvh.traverse.cast_rays`` over the bunny's
+    rays against ``native.raycast``.
 
 It checks the outputs (exact counts, card against CPU, the flagship step's
 depth against the analytic sphere and its loss and gradient norm against
@@ -40,7 +53,8 @@ the level-0 bunny with the "mxu", "bruteforce" and "bvh" backends against
 the cluster caster, times the kernels and the paths' stages with CUDA
 events, and prints:
 
-  * a ``stages`` JSON line: the paths' stage times;
+  * a ``stages`` JSON line: the paths' stage times (``mt``: the
+    marching-tetrahedra path's, with Mtet/s);
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
     error against its plain version, its time per wrapper call (``ms``,
     CUDA events around one call, the host's part included), its own device
@@ -127,6 +141,14 @@ DEVICE_KERNELS = {
 # the large mesh itself, so the differences are the meshes', not the walk's
 LARGE_AGREE = 0.999
 LARGE_FACE_AGREE = 0.998
+# the marching-tetrahedra path: the tet fixture (examples/data/tetrahedra)
+# and BENCH_r05.json's 128^3 Kuhn lattice (bench.py's MT section: a sphere
+# SDF of radius n/4 about the centre, capacities 2^17 / 2^18), with the JAX
+# package's counts
+MT_FIXTURE_COUNTS = (4650, 9296)
+MT_N = 128
+MT_CAPS = (1 << 17, 1 << 18)
+MT_COUNTS = (57830, 115656)
 
 
 def log(*a):
@@ -226,7 +248,7 @@ def backward_ms(make_loss, iters=5, warmup=1):
     return sorted(times)[len(times) // 2]
 
 
-def profile_step(step, top=8):
+def profile_step(step, top=8, title="training step"):
     """One ``step()`` under ``torch.profiler``: logs the kernels and the
     autograd nodes with the most device time, and returns the device busy
     share of the step's wall time (None where the profiler saw no device
@@ -251,18 +273,19 @@ def profile_step(step, top=8):
     kern = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_us(e, True) for e in kern)
     if busy_us <= 0:
-        log("profile of one training step: no device time seen")
+        log(f"profile of one {title}: no device time seen")
         return dict(profiled_wall_ms=wall_us / 1e3, device_busy_share=None)
-    for title, rows, own in (
+    for kind, rows, own in (
             ("kernels", kern, True),
             ("backward nodes", [e for e in avgs if e.key.startswith(
                 "autograd::engine::evaluate_function")], False)):
         rows = sorted(rows, key=lambda e: -dev_us(e, own))[:top]
-        log(f"profile of one training step, {title} by device ms: "
+        log(f"profile of one {title}, {kind} by device ms: "
             + "; ".join(f"{e.key[:60]} {dev_us(e, own) / 1e3:.3f} x{e.count}"
                         for e in rows))
-    log(f"profile of one training step: wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f})")
+    log(f"profile of one {title}: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f}), "
+        f"{sum(e.count for e in kern)} kernels")
     return dict(profiled_wall_ms=wall_us / 1e3,
                 device_busy_share=busy_us / wall_us)
 
@@ -330,6 +353,191 @@ def brute_force_sorted(rk, tri, o, d, max_dist, cells=1 << 25):
         best = torch.where(upd, tmin, best)
         idx = torch.where(upd, s + m, idx)
     return best, idx
+
+
+def mt_lattice(n):
+    """BENCH_r05.json's MT input: grid_tetrahedra(n) and the sphere SDF of
+    radius n / 4 about the lattice's centre, in float32."""
+    from primitive3d_tpu_torch import grid_tetrahedra
+    pts, tets = grid_tetrahedra(n)
+    c = (n - 1) / 2.0
+    return pts, tets, ((n / 4.0) - np.linalg.norm(pts - c, axis=1)
+                       ).astype(np.float32)
+
+
+def mt_path(counted, v_b, f_b, origins, dirs):
+    """The marching-tetrahedra path (plain PyTorch: it launches no
+    hand-written kernel), PLY I/O and the native host runtime, on the card.
+    Returns the path's stage times."""
+    import tempfile
+
+    import torch
+    from primitive3d_tpu_torch import (load_mesh, marching_tetrahedra,
+                                       marching_tetrahedra_lattice,
+                                       marching_tetrahedra_padded,
+                                       marching_tetrahedras, native,
+                                       save_mesh)
+    from primitive3d_tpu_torch.bvh.traverse import cast_rays
+
+    data = os.path.join(ROOT, "examples", "data", "tetrahedra")
+    pts, tets, sdf = (np.load(os.path.join(data, f"{k}.npy"))
+                      for k in ("points", "tetrahedras", "sdfs"))
+    device, n, (vc, fc) = "cuda", MT_N, MT_CAPS
+    lpts, ltets, lsdf = mt_lattice(n)
+    d_pts = torch.from_numpy(pts).to(device)
+    d_tets = torch.from_numpy(tets).to(device)
+    d_sdf = torch.from_numpy(sdf).to(device)
+    l_pts = torch.from_numpy(lpts).to(device)
+    l_tets = torch.from_numpy(ltets).to(device)
+    l_sdf = torch.from_numpy(lsdf).to(device)
+    T_l = ltets.shape[0]
+    torch.cuda.synchronize()
+
+    def fixture_step():
+        p = d_pts.clone().requires_grad_()
+        s = d_sdf.clone().requires_grad_()
+        v, f, tid = marching_tetrahedras(p, d_tets, s, return_tet_idx=True,
+                                         device=device)
+        (v ** 2).sum().backward()
+        return v.detach(), f, tid, p.grad, s.grad
+
+    def drive():
+        out = fixture_step()
+        kw = dict(vert_capacity=vc, face_capacity=fc, device=device)
+        sort = marching_tetrahedra_padded(l_pts, l_tets, l_sdf, **kw)
+        ident = marching_tetrahedra_lattice(None, l_sdf, n, **kw)
+        expl = marching_tetrahedra_lattice(l_pts, l_sdf, n, **kw)
+        eager = marching_tetrahedra(l_pts, l_tets, l_sdf, device=device)
+        return out, sort, ident, expl, eager
+
+    # no kernel of csrc/ belongs to this path: nothing must launch
+    ((v, f, tid, gp, gs), sort, ident, expl, eager), launches = counted(
+        "marching-tetrahedra", (), drive)
+    check(sum(launches.values()) == 0,
+          f"the marching-tetrahedra path launched kernels: {launches}")
+    check((v.shape[0], f.shape[0]) == MT_FIXTURE_COUNTS,
+          f"MT fixture {v.shape[0]} / {f.shape[0]}, want {MT_FIXTURE_COUNTS}")
+    # the same on the CPU: integers equal, positions and gradients within
+    # float32 rounding of another summation order (rtol 1e-5, atol 1e-6)
+    p = torch.from_numpy(pts).requires_grad_()
+    s = torch.from_numpy(sdf).requires_grad_()
+    v_c, f_c, tid_c = marching_tetrahedras(p, tets, s, return_tet_idx=True,
+                                           device="cpu")
+    (v_c ** 2).sum().backward()
+    verr = float((v.cpu() - v_c.detach()).abs().max())
+    gerr = [float((g.cpu() - gc).abs().max()) for g, gc in
+            ((gp, p.grad), (gs, s.grad))]
+    log(f"MT fixture: {v.shape[0]} verts / {f.shape[0]} faces on {device}; "
+        f"against the CPU: faces and tet_idx equal "
+        f"{torch.equal(f.cpu(), f_c) and torch.equal(tid.cpu(), tid_c)}, "
+        f"vertices max |diff| {verr:.3g}, gradient max |diff| (points, "
+        f"sdf) {gerr[0]:.3g}, {gerr[1]:.3g}")
+    check(torch.equal(f.cpu(), f_c) and torch.equal(tid.cpu(), tid_c),
+          "MT fixture: faces or tet_idx differ from the CPU")
+    check(torch.allclose(v.cpu(), v_c.detach(), rtol=1e-6, atol=1e-6),
+          "MT fixture: vertices differ from the CPU")
+    check(torch.allclose(gp.cpu(), p.grad, rtol=1e-5, atol=1e-6)
+          and torch.allclose(gs.cpu(), s.grad, rtol=1e-5, atol=1e-6),
+          "MT fixture: gradients differ from the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mt.ply")
+        save_mesh(v, f, filename=path)
+        v2, f2, c2 = load_mesh(path)
+        check(np.array_equal(v2, v.cpu().numpy())
+              and np.array_equal(f2, f.cpu().numpy()) and (c2 == 127).all(),
+              "MT fixture: the PLY does not give the mesh back")
+        native.save_ply(os.path.join(tmp, "native.ply"), v, f)
+        with open(path, "rb") as a, open(os.path.join(tmp, "native.ply"),
+                                          "rb") as b:
+            check(a.read() == b.read(), "native.save_ply differs from "
+                  "save_mesh")
+    log("MT fixture: save_mesh from the card's tensors round-trips through "
+        "load_mesh; native.save_ply writes the same bytes")
+
+    # the lattice: the compacted sort tier, the lattice tier with and
+    # without the points, the eager (uncompacted) sort tier
+    nv, nf = int(sort.num_vertices), int(sort.num_faces)
+    log(f"MT {n}^3 lattice ({T_l} tets): sort tier {nv} verts / {nf} faces "
+        f"(A = {min(fc, T_l)} active tets); the JAX package's: "
+        f"{MT_COUNTS[0]} / {MT_COUNTS[1]}")
+    check((nv, nf) == MT_COUNTS and not bool(sort.overflowed),
+          f"MT lattice counts {nv} / {nf}, want {MT_COUNTS}")
+    for name, r in (("identity", ident), ("explicit", expl)):
+        same = all(torch.equal(getattr(r, k), getattr(sort, k)) for k in
+                   ("faces", "tet_idx", "num_vertices", "num_faces"))
+        err = float((r.vertices - sort.vertices).abs().max())
+        log(f"MT lattice tier ({name} points) against the sort tier: "
+            f"integers equal {same}, vertices max |diff| {err:.3g}")
+        check(same and torch.allclose(r.vertices, sort.vertices, rtol=1e-6,
+                                      atol=1e-6),
+              f"MT lattice tier ({name}) differs from the sort tier")
+    ev, ef = eager
+    check(torch.equal(ev, sort.vertices[:nv]) and torch.equal(
+        ef, sort.faces[:nf]), "MT eager lattice differs from the padded one")
+    log(f"MT eager sort tier over all {6 * T_l} edges: equal to the padded "
+        f"compacted one")
+    del ident, expl, eager, ev, ef
+
+    # the native runtime: a tree built on the host, walked on the device
+    tris = v_b[f_b.long()]
+    t0 = time.perf_counter()
+    bvh = native.build_lbvh(tris, device=device)
+    t_build = (time.perf_counter() - t0) * 1e3
+    o = torch.as_tensor(origins).to(device)
+    d = torch.as_tensor(dirs).to(device)
+    depth, leaf = cast_rays(bvh, o, d, 10.0)
+    fid = torch.where(leaf >= 0, bvh.prim_order[leaf.clamp(min=0).long()],
+                      -1).cpu().numpy()
+    t0 = time.perf_counter()
+    n_depth, _, n_fid = native.raycast(bvh, origins, dirs, 10.0)
+    t_ncast = (time.perf_counter() - t0) * 1e3
+    agree = float((fid == n_fid).mean())
+    bad = np.nonzero(fid != n_fid)[0]
+    log(f"native: LBVH of {tris.shape[0]} triangles built on the host in "
+        f"{t_build:.1f} ms, walked on {device} by bvh.traverse.cast_rays "
+        f"over {fid.shape[0]} rays: face ids equal the native cast's "
+        f"({t_ncast:.1f} ms on the host) on {agree:.6f} of rays; "
+        f"{bad.shape[0]} differ: " + "; ".join(
+            f"ray {q} ({fid[q]}, {float(depth[q]):.6f}) vs ({n_fid[q]}, "
+            f"{n_depth[q]:.6f})" for q in bad[:20]))
+    check(agree >= LARGE_AGREE, "native: the host tree walked on the card "
+          "disagrees with the native cast")
+
+    # times: medians of CUDA-event runs after one warm-up
+    kw = dict(vert_capacity=vc, face_capacity=fc)
+    times = dict(
+        fixture_eager_ms=event_ms(lambda: marching_tetrahedra(
+            d_pts, d_tets, d_sdf), iters=10, warmup=1),
+        fixture_backward_ms=backward_ms(lambda: (marching_tetrahedra(
+            d_pts.clone().requires_grad_(), d_tets,
+            d_sdf.clone().requires_grad_())[0] ** 2).sum()),
+        lattice_sort_ms=event_ms(lambda: marching_tetrahedra_padded(
+            l_pts, l_tets, l_sdf, **kw), iters=5, warmup=1),
+        lattice_identity_ms=event_ms(lambda: marching_tetrahedra_lattice(
+            None, l_sdf, n, **kw), iters=10, warmup=1),
+        lattice_explicit_ms=event_ms(lambda: marching_tetrahedra_lattice(
+            l_pts, l_sdf, n, **kw), iters=10, warmup=1),
+        lattice_eager_ms=event_ms(lambda: marching_tetrahedra(
+            l_pts, l_tets, l_sdf), iters=3, warmup=1),
+        native_build_ms=t_build, native_host_cast_ms=t_ncast)
+    rates = {k.replace("_ms", "_mtet_per_s"): (tets.shape[0] if "fixture" in k
+                                              else T_l) / (ms * 1e3)
+             for k, ms in times.items() if not k.startswith("native")}
+    log("path marching tetrahedra: " + ", ".join(
+        f"{k} {x:.3f}" for k, x in {**times, **rates}.items()))
+    busy = {}
+    for name, fn in (
+            ("fixture_step", fixture_step),
+            ("lattice_sort", lambda: marching_tetrahedra_padded(
+                l_pts, l_tets, l_sdf, **kw)),
+            ("lattice_identity", lambda: marching_tetrahedra_lattice(
+                None, l_sdf, n, **kw)),
+            ("lattice_eager", lambda: marching_tetrahedra(
+                l_pts, l_tets, l_sdf))):
+        prof = profile_step(fn, top=6, title=f"MT {name} call")
+        busy[f"{name}_device_busy_share"] = prof["device_busy_share"]
+    return dict(times, **rates, **busy, fixture_tets=tets.shape[0],
+                lattice_tets=T_l)
 
 
 def nbytes(*tensors):
@@ -1237,6 +1445,10 @@ def main() -> int:
         f"step {t_step:.3f} ms = {R_f / (t_step * 1e3):.2f} Mrays/s")
     stage["training"].update(profile_step(step))
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    del dens_t
+
+    # -- 7. the marching-tetrahedra path, PLY I/O and the native runtime ----
+    stage["mt"] = mt_path(counted, v_b, f_b, cam_b.origins, cam_b.dirs)
 
     log(json.dumps({"stages": stage}))
     log(json.dumps({"kernels": kernels}))

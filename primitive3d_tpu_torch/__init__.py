@@ -34,6 +34,17 @@ photogrammetry or LiDAR mesh of tens of millions of triangles), and the
 other backends of the JAX package: ``"mxu"``, ``"bruteforce"`` and
 ``"bvh"``.
 
+The ninth slice adds the rest of the JAX package's top-level API:
+differentiable marching tetrahedra (the sort tier for any tet mesh and the
+sort-free tier for the Kuhn lattice of ``grid_tetrahedra``), PLY export and
+import, and ``__version__``; beside them ``native`` (the ctypes binding of
+the host runtime), ``geometry.aabb``, ``core.canonical`` and
+``core.profiling``:
+
+    v, f, tet_idx = p3t.marching_tetrahedra(points, tets, sdf,
+                                            return_tet_idx=True)
+    p3t.save_mesh(v, f, filename="mesh.ply")
+
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"`` (or ``cpu=True`` to ``marching_cubes``); without a card
 they raise.
@@ -41,6 +52,7 @@ they raise.
 from .core.config import Config, MarchingCubesConfig, RayCastConfig
 from .core.grid import scale_to_bound
 from .core.timer import Timer, TimerError, time_fn
+from .io.ply import load_mesh, save_mesh
 from .ops.marching_cubes import (
     MCResult,
     MCSoupResult,
@@ -49,10 +61,22 @@ from .ops.marching_cubes import (
     marching_cubes_padded,
     marching_cubes_soup,
 )
+from .ops.marching_tetrahedra import (
+    MTResult,
+    grid_tetrahedra,
+    marching_tetrahedra,
+    marching_tetrahedra_lattice,
+    marching_tetrahedra_padded,
+)
 from .pipeline import RenderOut, render_depth, sdf_fitting_loss
 from .raycast import RayHits, available_backends, create_raycaster
+from .version import __version__
+
+# the reference library's spelling
+marching_tetrahedras = marching_tetrahedra
 
 __all__ = [
+    "__version__",
     "Config",
     "RayCastConfig",
     "MarchingCubesConfig",
@@ -63,6 +87,8 @@ __all__ = [
     "TimerError",
     "time_fn",
     "scale_to_bound",
+    "save_mesh",
+    "load_mesh",
     "MCResult",
     "marching_cubes",
     "marching_cubes_counts",
@@ -72,4 +98,10 @@ __all__ = [
     "RenderOut",
     "render_depth",
     "sdf_fitting_loss",
+    "MTResult",
+    "grid_tetrahedra",
+    "marching_tetrahedra",
+    "marching_tetrahedras",
+    "marching_tetrahedra_lattice",
+    "marching_tetrahedra_padded",
 ]

@@ -1,1 +1,1 @@
-"""Surface extraction: marching cubes and its tables."""
+"""Surface extraction: marching cubes, marching tetrahedra, tables."""

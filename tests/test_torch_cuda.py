@@ -11,7 +11,10 @@ work lists and casts are compared exactly (the lists' bounds bit for bit).
 The
 plane scatter kernel sums each row in float32 in ray order where its plain
 version sums in float64: it is compared to a relative error of 1e-5, and
-with itself bit for bit.
+with itself bit for bit. The marching-tetrahedra, PLY and native tests
+hold plain PyTorch on the card against the CPU (integers exactly,
+positions to 1e-6, gradients to rtol 1e-5 / atol 1e-6), the lattice tier
+against the sort tier, and a host-built tree walked on the card.
 """
 import os
 
@@ -20,9 +23,11 @@ import pytest
 import torch
 
 import primitive3d_tpu_torch as p3t
+from primitive3d_tpu_torch import native
 from primitive3d_tpu_torch.bvh.clusters import (build_cluster_tree,
                                                 build_clusters,
                                                 build_mxu_clusters)
+from primitive3d_tpu_torch.bvh.traverse import cast_rays
 from primitive3d_tpu_torch.core.config import RayCastConfig
 from primitive3d_tpu_torch.geometry.triangle import subdivide
 from primitive3d_tpu_torch.kernels import _build
@@ -35,6 +40,7 @@ from tests.stream_cases import CULL_CASES, cull_case, flat_case, rows
 
 BUNNY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data", "bunny.npy")
+TETS = os.path.join(os.path.dirname(BUNNY), "tetrahedra")
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +417,87 @@ def test_build_all_sources(cuda):
                                      "mc_masks.cu", "plane_scatter.cu",
                                      "stream_cull.cu"}
     assert all(isinstance(text, str) for text in logs.values())
+
+
+def _mt_fixture():
+    return [np.load(os.path.join(TETS, f"{name}.npy"))
+            for name in ("points", "tetrahedras", "sdfs")]
+
+
+def test_mt_fixture_card_equals_cpu(cuda):
+    """Eager marching tetrahedra on the tet fixture: faces, tet ids and
+    counts equal, positions to 1e-6, and the gradient of sum(v ** 2) with
+    respect to the points and the SDF to rtol 1e-5 / atol 1e-6 (autograd's
+    scatter-adds may sum in another order on the card)."""
+    pts, tets, sdf = _mt_fixture()
+    outs = []
+    for device in ("cuda", "cpu"):
+        p = torch.from_numpy(pts).to(device).requires_grad_()
+        s = torch.from_numpy(sdf).to(device).requires_grad_()
+        v, f, tid = p3t.marching_tetrahedra(p, tets, s, return_tet_idx=True,
+                                            device=device)
+        (v ** 2).sum().backward()
+        outs.append([t.detach().cpu() for t in (v, f, tid, p.grad, s.grad)])
+    (vc, fc, tc, gpc, gsc), (vh, fh, th, gph, gsh) = outs
+    assert (vc.shape[0], fc.shape[0]) == (4650, 9296)
+    assert torch.equal(fc, fh) and torch.equal(tc, th)
+    assert torch.allclose(vc, vh, rtol=1e-6, atol=1e-6)
+    assert torch.allclose(gpc, gph, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(gsc, gsh, rtol=1e-5, atol=1e-6)
+
+
+def test_mt_lattice_equals_sort_tier_on_card(cuda):
+    """At n = 24 on the card: the lattice tier, with the points and without,
+    against the sort tier on grid_tetrahedra(24)."""
+    n = 24
+    pts, tets = p3t.grid_tetrahedra(n)
+    sdf = ((n / 4.0) - np.linalg.norm(pts - (n - 1) / 2.0, axis=1)
+           ).astype(np.float32)
+    kw = dict(vert_capacity=8192, face_capacity=16384)
+    want = p3t.marching_tetrahedra_padded(pts, tets, sdf, **kw)
+    assert 0 < int(want.num_faces) <= 16384
+    for vin in (pts, None):
+        got = p3t.marching_tetrahedra_lattice(vin, sdf, n, **kw)
+        for name in ("faces", "tet_idx", "num_vertices", "num_faces"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.allclose(got.vertices, want.vertices, rtol=1e-6,
+                              atol=1e-6)
+
+
+def test_save_mesh_from_cuda_tensors(cuda, tmp_path):
+    pts, tets, sdf = _mt_fixture()
+    v, f = p3t.marching_tetrahedra(pts, tets, sdf)
+    assert v.is_cuda and f.is_cuda
+    p3t.save_mesh(v, f, filename=tmp_path / "card.ply")
+    p3t.save_mesh(v.cpu().numpy(), f.cpu().numpy(),
+                  filename=tmp_path / "host.ply")
+    assert (tmp_path / "card.ply").read_bytes() == \
+        (tmp_path / "host.ply").read_bytes()
+    v2, f2, _ = p3t.load_mesh(tmp_path / "card.ply")
+    assert np.array_equal(v2, v.cpu().numpy())
+    assert np.array_equal(f2, f.cpu().numpy())
+
+
+def test_native_tree_walked_on_card(cuda):
+    """A tree built on the host by the native runtime, walked on the card by
+    ``bvh.traverse.cast_rays``: the same hits as the walk on the CPU and
+    as the native cast."""
+    v, f = p3t.marching_cubes(_sphere(), 0.0, scale=(-1.0, 1.0),
+                              device="cpu")
+    tris = v[f.long()]
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    o, d = torch.from_numpy(cam.origins), torch.from_numpy(cam.dirs)
+    walks = []
+    for device in ("cuda", "cpu"):
+        bvh = native.build_lbvh(tris, device=device)
+        assert bvh.left.device.type == device
+        depth, leaf = cast_rays(bvh, o.to(device), d.to(device), 10.0)
+        fid = torch.where(leaf >= 0,
+                          bvh.prim_order[leaf.clamp(min=0).long()], -1)
+        walks.append((depth.cpu(), fid.cpu()))
+    (dc, ic), (dh, ih) = walks
+    assert torch.equal(ic, ih) and torch.allclose(dc, dh, rtol=1e-6,
+                                                  atol=1e-6)
+    _, _, nid = native.raycast(bvh, o, d, 10.0)
+    assert 0.1 < float((ic >= 0).float().mean()) < 0.9
+    assert float((ic.numpy() == nid).mean()) >= 0.999

@@ -1,11 +1,12 @@
 """The PyTorch port never imports JAX or the JAX package.
 
-An AST check of every module of ``primitive3d_tpu_torch``, of
-``chip_smoke.py``, ``tools/torch_kernel_ab.py`` and the card tests'
-helpers (``tests/mask_cases.py``, ``tests/stream_cases.py``): no ``import
-jax``, ``jaxlib`` or ``primitive3d_tpu`` (relative imports stay inside the
-port). A check of ``sys.modules`` cannot
-work here, because the test process imports JAX for the parity tests.
+An AST check of every module of ``primitive3d_tpu_torch``, of the port's
+examples (``examples/torch/``), of ``chip_smoke.py``,
+``tools/torch_kernel_ab.py`` and the card tests' helpers
+(``tests/mask_cases.py``, ``tests/stream_cases.py``): no ``import jax``,
+``jaxlib`` or ``primitive3d_tpu`` (relative imports stay inside the port).
+A check of ``sys.modules`` cannot work here, because the test process
+imports JAX for the parity tests.
 """
 import ast
 import os
@@ -21,10 +22,10 @@ def _port_files():
     # JAX is not installed
     out = ["chip_smoke.py", "tools/torch_kernel_ab.py", "tests/mask_cases.py",
            "tests/stream_cases.py"]
-    for dirpath, _, names in os.walk(os.path.join(ROOT,
-                                                  "primitive3d_tpu_torch")):
-        out += [os.path.relpath(os.path.join(dirpath, n), ROOT)
-                for n in sorted(names) if n.endswith(".py")]
+    for top in ("primitive3d_tpu_torch", os.path.join("examples", "torch")):
+        for dirpath, _, names in os.walk(os.path.join(ROOT, top)):
+            out += [os.path.relpath(os.path.join(dirpath, n), ROOT)
+                    for n in sorted(names) if n.endswith(".py")]
     return sorted(out)
 
 
@@ -46,6 +47,8 @@ def _imported_roots(tree):
 def test_port_has_modules():
     files = _port_files()
     assert "primitive3d_tpu_torch/raycast.py" in files
+    assert "primitive3d_tpu_torch/ops/marching_tetrahedra.py" in files
+    assert "examples/torch/sphere_tetrahedra.py" in files
     assert len(files) > 15
 
 
