@@ -55,7 +55,12 @@ kernel launch counts set to 0 just before it and read just after:
 It checks the outputs (exact counts, card against CPU, the flagship step's
 depth against the analytic sphere and its loss and gradient norm against
 FLAGSHIP_r5.json, the large mesh's frame against the bunny's and, on the
-rays where they disagree, against a brute force of the large mesh), runs three
+rays where they disagree, against a brute force of the large mesh; the
+sharded step at world size 1 against the single step, the gradient bit for
+bit), checks the JAX package's names on the card (``PallasRayCaster``
+against ``create_raycaster(..., backend="pallas")`` on every bunny ray,
+``timer.block`` on card tensors, ``debug.checked`` raising ``CheckError``
+on an overflowing ``marching_cubes_padded``), runs three
 Adam steps of the flagship fitting recipe, holds each kernel against its
 plain PyTorch version on the card at the shapes its path gives it (both
 cluster casts bit for bit on every ray but those a float64 witness
@@ -67,7 +72,10 @@ events, and prints:
   * a ``stages`` JSON line: the paths' stage times (``mt``: the
     marching-tetrahedra path's, with Mtet/s; ``sharded``: the sharded
     path's beside the single-device ones, the two ranks' slowest, and a
-    profile of each step);
+    profile of each step; ``corner_adds``: the soup backward's eight
+    ``index_add_``s on the flagship step's own cotangent, device time with
+    the padding rows spread past the grid against the old layout built
+    here, every padding row at cube 0, the two gradients equal);
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
     error against its plain version, its time per wrapper call (``ms``,
     CUDA events around one call, the host's part included), its own device
@@ -227,10 +235,11 @@ def event_ms(fn, iters=10, warmup=2):
 
 def device_ms(fn, name, calls=20):
     """Device milliseconds per call of ``fn``, a wrapper that launches the
-    kernel ``name``: the device time of its kernels (DEVICE_KERNELS) that
-    ``torch.profiler`` records over ``calls`` back-to-back calls, divided by
-    ``calls``. Where the profiler records none, CUDA events around the
-    ``calls`` calls, divided by ``calls``. Returns (ms, source)."""
+    kernel ``name``: the device time of its kernels (DEVICE_KERNELS; every
+    kernel ``fn`` launches where ``name`` is None) that ``torch.profiler``
+    records over ``calls`` back-to-back calls, divided by ``calls``. Where
+    the profiler records none, CUDA events around the ``calls`` calls,
+    divided by ``calls``. Returns (ms, source)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,9 +250,10 @@ def device_ms(fn, name, calls=20):
             fn()
         torch.cuda.synchronize()
     us, launches = 0.0, 0
+    keys = DEVICE_KERNELS[name] if name else ("",)
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.key for k in DEVICE_KERNELS[name])):
+                and any(k in e.key for k in keys)):
             us += getattr(e, "self_device_time_total", 0.0) or 0.0
             launches += e.count
     if us > 0 and launches >= calls:
@@ -276,11 +286,12 @@ def backward_ms(make_loss, iters=5, warmup=1):
     return sorted(times)[len(times) // 2]
 
 
-def profile_step(step, top=8, title="training step"):
+def profile_step(step, top=8, title="training step", groups=None):
     """One ``step()`` under ``torch.profiler``: logs the kernels and the
     autograd nodes with the most device time, and returns the device busy
     share of the step's wall time (None where the profiler saw no device
-    time)."""
+    time), the busy ms and, for each ``groups`` entry {name: key}, the
+    device ms of the kernels whose name holds the key."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -314,8 +325,16 @@ def profile_step(step, top=8, title="training step"):
     log(f"profile of one {title}: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f}), "
         f"{sum(e.count for e in kern)} kernels")
-    return dict(profiled_wall_ms=wall_us / 1e3,
-                device_busy_share=busy_us / wall_us)
+    out = dict(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / wall_us)
+    for name, key in (groups or {}).items():
+        rows = [e for e in kern if key in e.key]
+        out[f"{name}_device_ms"] = sum(dev_us(e, True) for e in rows) / 1e3
+        out[f"{name}_launches"] = sum(e.count for e in rows)
+        log(f"profile of one {title}: {name} ({key!r} kernels) "
+            f"{out[f'{name}_device_ms']:.4f} ms device over "
+            f"{out[f'{name}_launches']} launches")
+    return out
 
 
 def needed_work(rk, bvh, o, d, depth, hit, max_dist, cells=1 << 25,
@@ -714,6 +733,8 @@ def sharded_path(counted, single, rc_b, rc_l, o_b, d_b):
         f"{gaps['grad_norm']:.3e}")
     check(abs(loss_v / loss_1 - 1) <= SHARD_LOSS_REL and close,
           "sharded step differs from the single-device step")
+    check(torch.equal(grad, grad_1), "sharded step at world size 1: the "
+          "gradient is not the single-device step's bit for bit")
     check(gaps["loss"] <= 0.01 and gaps["grad_norm"] <= 0.10,
           "sharded step: loss or |g| too far from FLAGSHIP_r5.json")
     # the casts against the single-device casts
@@ -895,6 +916,7 @@ def main() -> int:
     from primitive3d_tpu_torch.kernels import _build
     from primitive3d_tpu_torch.kernels import mc_masks as mk
     from primitive3d_tpu_torch.kernels import raycast_kernel as rk
+    from primitive3d_tpu_torch.ops import marching_cubes as mcmod
     from primitive3d_tpu_torch.ops.marching_cubes import (
         _counts, marching_cubes_counts)
     from primitive3d_tpu_torch.raycast import (ClusterRayCaster,
@@ -963,11 +985,12 @@ def main() -> int:
         "serving", SERVING_KERNELS, serve)
 
     # -- 3b. the training path, once, counted: one flagship step -----------
-    # the forward cast's and the backward plane scatter's inputs are kept
-    # for the kernel checks
-    stream_args, scatter_args = [], []
+    # the forward cast's, the backward plane scatter's and the soup
+    # backward's corner adds' inputs are kept for the checks
+    stream_args, scatter_args, corner_args = [], [], []
     cluster_cast_stream, plane_scatter = rk.cluster_cast_stream, \
         rk.plane_scatter
+    corner_adds = mcmod._corner_adds
 
     def recording_stream(*args, **kw):
         stream_args.append((args, kw))
@@ -977,6 +1000,10 @@ def main() -> int:
         scatter_args.append(args)
         return plane_scatter(*args)
 
+    def recording_corners(*args):
+        corner_args.append(args)
+        return corner_adds(*args)
+
     def train_step():
         dens = sphere_dev.clone().requires_grad_()
         loss = sdf_fitting_loss(dens, o_f, d_f, target_f, **step_kw)
@@ -985,14 +1012,17 @@ def main() -> int:
 
     rk.cluster_cast_stream = recording_stream
     rk.plane_scatter = recording_scatter
+    mcmod._corner_adds = recording_corners
     try:
         (loss_f, grad_f), training = counted("training", TRAINING_KERNELS,
                                              train_step)
     finally:
         rk.cluster_cast_stream = cluster_cast_stream
         rk.plane_scatter = plane_scatter
+        mcmod._corner_adds = corner_adds
     check(len(stream_args) == 1, "the flagship forward ran no stream cast")
     check(len(scatter_args) == 1, "the flagship backward ran no plane scatter")
+    check(len(corner_args) == 1, "the flagship backward ran no corner adds")
 
     # -- 3c. the large-mesh path, once, counted -------------------------------
     o_b = torch.from_numpy(cam_b.origins).to(dev)
@@ -1082,6 +1112,35 @@ def main() -> int:
           and torch.allclose(hits_b.normals.cpu(), h_cpu.normals, rtol=0,
                              atol=1e-6),
           "bunny: the card's cast differs from the CPU's")
+
+    # -- 4a. the JAX package's names, on the card: PallasRayCaster is the
+    # cluster caster, timer.block waits on card tensors and returns them,
+    # debug.checked raises on an overflow of the card's extraction
+    from primitive3d_tpu_torch import marching_cubes_padded
+    from primitive3d_tpu_torch.core import debug, timer
+    from primitive3d_tpu_torch.raycast import PallasRayCaster
+
+    h_p = PallasRayCaster(v_b, f_b).cast(cam_b.origins, cam_b.dirs)
+    h_c = create_raycaster(v_b, f_b, backend="pallas").cast(cam_b.origins,
+                                                            cam_b.dirs)
+    check(timer.block(h_p) is h_p, "timer.block did not return its argument")
+    same_p = all(torch.equal(a, b) for a, b in zip(h_p, h_c))
+    check(same_p and torch.equal(h_p.face_id, hits_b.face_id),
+          "PallasRayCaster differs from create_raycaster(backend='pallas')")
+    try:
+        debug.checked(marching_cubes_padded)(sphere_dev, 0.0,
+                                             vert_capacity=8, face_capacity=8)
+        raised = "nothing"
+    except debug.CheckError as e:
+        raised = f"CheckError: {e}"
+    check(raised.startswith("CheckError") and not debug.enabled(),
+          f"debug.checked on an overflowing extraction raised {raised}")
+    log(f"names on the card: PallasRayCaster equals create_raycaster("
+        f"backend='pallas') on all {h_p.face_id.shape[0]} bunny rays "
+        f"(depth, normals and face ids bit for bit); timer.block returned "
+        f"its argument; debug.checked(marching_cubes_padded) on the 256^3 "
+        f"sphere at 8 / 8 raised {raised}")
+    del h_p, h_c
 
     # -- 4c. the large-mesh frame is the bunny's ----------------------------
     C_l, S_l = rc_l.cbvh.tri_data.shape[:2]
@@ -1777,9 +1836,60 @@ def main() -> int:
     log(f"path training (flagship step): soup MC {t_soup:.3f} ms, "
         f"render_depth forward {t_fwd:.3f} ms, backward {t_bwd:.3f} ms, "
         f"step {t_step:.3f} ms = {R_f / (t_step * 1e3):.2f} Mrays/s")
-    stage["training"].update(profile_step(step))
+    stage["training"].update(profile_step(
+        step, groups=dict(corner_adds="indexFunc")))
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
     del dens_t
+
+    # -- 6c. the soup backward's corner adds on the step's own cotangent:
+    # the padding rows in a tail past the grid, against the old layout
+    # built here, every padding row added at cube 0 (equal after + 0.0,
+    # which folds signed zeros)
+    idx_c, valid_c, g_c, shape_c = corner_args[0]
+
+    def old_adds():
+        dflat = g_c.new_zeros(shape_c.numel())
+        for c in range(8):
+            dflat.index_add_(0, idx_c[:, c], g_c[:, c])
+        return dflat.reshape(shape_c)
+
+    def new_adds():
+        return mcmod._corner_adds(idx_c, valid_c, g_c, shape_c)
+
+    new_g, old_g = new_adds(), old_adds()
+    check(torch.equal(new_g, grad_f), "corner adds: not the step's "
+          "gradient")
+    check(torch.equal(new_g + 0.0, old_g + 0.0), "corner adds: the "
+          "gradient differs from the old layout's")
+    A_c = idx_c.shape[0]
+    pad_c = int((~valid_c).sum())
+    at = mcmod._corner_index(idx_c, valid_c, shape_c.numel())
+    check(all(at[:, c].unique().numel() == A_c for c in range(8)),
+          "corner adds: a column of the add index repeats an index")
+    corner = dict(rows=A_c, padding_rows=pad_c,
+                  old_rows_at_one_index=int((idx_c[:, 0] == idx_c[-1, 0])
+                                            .sum()),
+                  bit_equal=torch.equal(new_g, old_g))
+    for name, fn in (("new", new_adds), ("old", old_adds)):
+        corner[f"{name}_ms"] = event_ms(fn, iters=20)
+        corner[f"{name}_device_ms"], corner[f"{name}_device_src"] = \
+            device_ms(fn, None)
+    # the bytes the adds need: each index and cotangent read once, the grid
+    # written once
+    corner["bound_ms"] = (nbytes(idx_c, g_c) + shape_c.numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    stage["corner_adds"] = corner
+    log(f"soup backward's corner adds (flagship step's cotangent, {A_c} "
+        f"rows, {pad_c} of them padding; the old layout put "
+        f"{corner['old_rows_at_one_index']} rows of a column at one "
+        f"index): equal to the old layout after + 0.0, bit-equal "
+        f"{corner['bit_equal']}; each column injective; device "
+        f"{corner['new_device_ms']:.4f} ms ({corner['new_device_src']}) "
+        f"against the old layout's {corner['old_device_ms']:.4f} ms "
+        f"({corner['old_device_src']}), per call {corner['new_ms']:.4f} "
+        f"against {corner['old_ms']:.4f} ms; bound "
+        f"{corner['bound_ms']:.4f} ms (bytes)")
+    del idx_c, valid_c, g_c, new_g, old_g, at, corner_args
 
     # -- 7. the marching-tetrahedra path, PLY I/O and the native runtime ----
     stage["sharded"] = sharded_times

@@ -12,6 +12,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+# the resident tier's default cap in triangles: RayCastConfig,
+# raycast.ClusterRayCaster.MXU_MAX_TRIS and, through it,
+# kernels.raycast_kernel.cast_clusters_diff read this one number
+MXU_MAX_TRIS = 32_000
+
 
 @dataclasses.dataclass(frozen=True)
 class RayCastConfig:
@@ -20,10 +25,9 @@ class RayCastConfig:
     max_dist: float = 10.0
     cluster_size: Optional[int] = None  # None = 128, or 256 past 500k tris
     mxu_chunk: int = 512  # triangles per matrix product ("mxu" backend)
-    # mesh-size tiers of the cluster caster (see raycast.ClusterRayCaster)
-    # resident tier up to here, stream above; None = the caster's
-    # ClusterRayCaster.MXU_MAX_TRIS (32,000)
-    mxu_max_tris: Optional[int] = None
+    # mesh-size tiers of the cluster caster (see raycast.ClusterRayCaster):
+    # resident tier up to here, stream above
+    mxu_max_tris: int = MXU_MAX_TRIS
     mxu_stream_max_tris: Optional[int] = None  # None = 32767 * cluster_size
     # exactly-zero Plücker side products (a ray through a shared edge)
     # agree with any sign instead of counting as +0/-0 signs

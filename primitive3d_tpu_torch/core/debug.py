@@ -11,10 +11,14 @@ predicate back to the host and raises ``CheckError`` when it is false.
     with debug.checks():
         marching_cubes_padded(grid, 0.0, vert_capacity=8, face_capacity=8)
         # raises CheckError: capacity overflow
+
+    debug.checked(marching_cubes_padded)(grid, 0.0, vert_capacity=8,
+                                         face_capacity=8)  # the same
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -49,6 +53,19 @@ def check(pred, msg: str, **fmt) -> None:
         vals = {k: (v.item() if isinstance(v, torch.Tensor) else v)
                 for k, v in fmt.items()}
         raise CheckError(msg.format(**vals))
+
+
+def checked(fn):
+    """``fn`` wrapped to run inside a :func:`checks` scope: the first failed
+    :func:`check` raises ``CheckError``. The JAX package's ``errors=``
+    (checkify error sets) has no counterpart here."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with checks():
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 def check_finite(x: torch.Tensor, name: str) -> None:

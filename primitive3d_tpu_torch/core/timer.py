@@ -8,7 +8,7 @@ there and with ``time.perf_counter`` on the CPU.
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -90,6 +90,29 @@ class Timer:
         dur = self._clock.seconds(self._t_last, now)
         self._t_last = now
         return dur
+
+
+def _cuda_devices(tree: Any, out: set) -> set:
+    """The CUDA devices of the tensors in ``tree`` (tuples, lists, dicts
+    and NamedTuples, nested)."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            out.add(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _cuda_devices(v, out)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            _cuda_devices(v, out)
+    return out
+
+
+def block(tree: Any) -> Any:
+    """Wait until the work of every CUDA device that holds a tensor in
+    ``tree`` is done; returns ``tree``. CPU tensors need no wait."""
+    for dev in _cuda_devices(tree, set()):
+        torch.cuda.synchronize(dev)
+    return tree
 
 
 def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,

@@ -51,8 +51,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..bvh.clusters import (SUB_SIZE, TREE_WIDTH, build_cluster_tree,
-                            tree_sizes)
+# CLUSTER_SIZE and ClusterBVH are also re-exported, as the JAX module does
+from ..bvh.clusters import (CLUSTER_SIZE, SUB_SIZE, TREE_WIDTH,  # noqa: F401
+                            ClusterBVH, build_cluster_tree, tree_sizes)
 from ..geometry.triangle import dot3
 from . import _build
 
@@ -63,6 +64,7 @@ MBLOCK = 2048  # rays per block of the work lists
 NCH = MBLOCK // RCHUNK
 WROW = 24  # floats per triangle row of MxuClusterBVH.w
 MAX_CLUSTER_SIZE = 256
+MISS = 3.0e38  # the depth key of a test that missed (the JAX kernels' MISS)
 _CULL_ELEMS = 1 << 23  # (block, chunk, cluster) cells per cull pass
 _PLAIN_VISITS = 128  # visits per batch of the plain cast (~0.3 GB of temps)
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -168,7 +170,7 @@ def _stream_entries(boxes: Tensor, rint: Tensor, max_dist: float
     n = torch.empty((B,), dtype=torch.int32, device=dev)
     for blk, okc, tlc in _culled(boxes, rint, max_dist):
         cmask = (okc.to(torch.int32) * bits).sum(dim=-1, dtype=torch.int32)
-        bound = torch.where(okc, tlc, 3.0e38).amin(dim=-1)  # (b, C)
+        bound = torch.where(okc, tlc, MISS).amin(dim=-1)  # (b, C)
         flagged = cmask > 0
         # front to back: flagged clusters first, by bound, stably
         key = torch.where(flagged, bound, float("inf"))
@@ -325,7 +327,7 @@ def _visit_keys(W: Tensor, R: Tensor, edge_wildcard: bool) -> Tensor:
     S = W.shape[1]
     im = S - 1
     ok, t = _triangle_tests(W, R, edge_wildcard)
-    tm = torch.abs(torch.where(ok, t, 3.0e38))
+    tm = torch.abs(torch.where(ok, t, MISS))
     slot = torch.arange(S, dtype=torch.int32, device=W.device)[:, None]
     return ((tm.view(torch.int32) & ~im) | slot).amin(dim=1)
 
@@ -417,7 +419,7 @@ def _witness(W: Tensor, R: Tensor, edge_wildcard: bool, max_dist: float
     t differs from its float32 t by more than NOISE_REL."""
     S = W.shape[1]
     ok, t = _triangle_tests(W, R, edge_wildcard)
-    tm = torch.abs(torch.where(ok, t, 3.0e38))
+    tm = torch.abs(torch.where(ok, t, MISS))
     tq = (tm.view(torch.int32) & ~(S - 1)).view(torch.float32)
     ok64, t64 = _triangle_tests(W.double(), R.double(), edge_wildcard)
     t64 = t64.abs()
@@ -1130,7 +1132,7 @@ def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
     clusters of 128 for the scalar-broadcast tier above, whose backward is
     autograd's own gather backward.
     """
-    from ..bvh.clusters import CLUSTER_SIZE, build_clusters, build_mxu_clusters
+    from ..bvh.clusters import build_clusters, build_mxu_clusters
     from ..raycast import ClusterRayCaster
 
     cap = (ClusterRayCaster.MXU_MAX_TRIS if mxu_max_tris is None

@@ -66,7 +66,8 @@ class MCResult(NamedTuple):
     faces: Tensor  # (face_capacity, 3) int32
     num_vertices: Tensor  # () int32 (true count, may exceed capacity)
     num_faces: Tensor  # () int32
-    unit_overflow: Tensor  # () bool: the active-cube budget ran out
+    # () bool: the active-cube budget ran out (or False, as in the JAX type)
+    unit_overflow: Union[Tensor, bool] = False
 
     @property
     def overflowed(self) -> Tensor:
@@ -184,6 +185,7 @@ class _FaceSlots(NamedTuple):
     n_active: Tensor  # () int64 true active-cube count
     a_ovf: Tensor  # () bool: more active cubes than the budget
     asrc: Tensor  # (Ac,) flat ids of the active cubes, in order
+    valid_a: Tensor  # (Ac,) bool: slot < n_active
     ntris_a: Tensor  # (Ac,) their triangle counts (0 past n_active)
     base_a: Tensor  # (Ac,) first face slot of each active cube
     apos: Tensor  # (Fc,) active cube of each face slot
@@ -215,8 +217,8 @@ def _face_slots(cmask: Tensor, face_capacity: int,
     base_a = incl - ntris_a
     q = torch.arange(face_capacity, dtype=torch.int64, device=dev)
     apos = torch.searchsorted(incl, q, right=True).clamp_(max=Ac - 1)
-    return _FaceSlots(num_faces, n_active, n_active > Ac, asrc, ntris_a,
-                      base_a, apos, q - base_a[apos], asrc[apos],
+    return _FaceSlots(num_faces, n_active, n_active > Ac, asrc, valid_a,
+                      ntris_a, base_a, apos, q - base_a[apos], asrc[apos],
                       mask_a[apos], q < num_faces)
 
 
@@ -284,33 +286,54 @@ _CORNERS = tuple(((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8))
 class _CornerGather(torch.autograd.Function):
     """(A, 8) corner densities of the cubes at flat grid indices ``base``.
 
-    Eight flat gathers at active-cube granularity, one per corner. The
-    backward adds each corner's column into the grid with its own
-    ``index_add_``: within one corner the cubes' indices are distinct
-    (padding slots repeat index 0 but carry zeros), so no two adds meet and
-    every run gives the same bits. The generic backward of one (A, 8)
-    gather sorts all 8A indices instead; at the 256^3 flagship size it took
-    27 ms of a 33 ms backward on an H100.
+    Eight flat gathers at active-cube granularity, one per corner; the
+    padding slots (``valid`` false) gather cube 0's corners. The backward
+    (:func:`_corner_adds`) adds each corner's column into the grid with its
+    own ``index_add_``. Within one corner the active cubes' indices are
+    distinct, and each padding row, whose cotangent is zero, adds into its
+    own slot of a tail past the grid that is cut off: no two adds of a
+    column meet, so every run gives the same bits, and no run of equal
+    indices serialises the card's atomics (the padding rows all at cube 0
+    made each add a run of ~230k adds to one address at the flagship size).
+    The generic backward of one (A, 8) gather sorts all 8A indices instead;
+    at the 256^3 flagship size it took 27 ms of a 33 ms backward on an H100.
     """
 
     @staticmethod
-    def forward(ctx, density, base):
+    def forward(ctx, density, base, valid):
         _, Y, Z = density.shape
         offs = torch.tensor([(dx * Y + dy) * Z + dz
                              for dx, dy, dz in _CORNERS],
                             dtype=torch.int64, device=density.device)
         idx = base[:, None] + offs
-        ctx.save_for_backward(idx)
+        ctx.save_for_backward(idx, valid)
         ctx.shape = density.shape
         return density.reshape(-1)[idx]
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        dflat = g.new_zeros(ctx.shape.numel())
-        for c in range(8):
-            dflat.index_add_(0, idx[:, c], g[:, c])
-        return dflat.reshape(ctx.shape), None
+        idx, valid = ctx.saved_tensors
+        return _corner_adds(idx, valid, g, ctx.shape), None, None
+
+
+def _corner_index(idx: Tensor, valid: Tensor, numel: int) -> Tensor:
+    """The backward's (A, 8) add index: ``idx`` on the valid rows, and
+    ``numel + a`` on each padding row a, past the grid's ``numel`` points."""
+    tail = numel + torch.arange(idx.shape[0], device=idx.device)
+    return torch.where(valid[:, None], idx, tail[:, None])
+
+
+def _corner_adds(idx: Tensor, valid: Tensor, g: Tensor,
+                 shape: torch.Size) -> Tensor:
+    """The corner gather's backward: the columns of ``g`` (A, 8) added into
+    a zero grid of ``shape`` at :func:`_corner_index`, one ``index_add_``
+    per corner; the tail the padding rows add into is cut off."""
+    numel = shape.numel()
+    at = _corner_index(idx, valid, numel)
+    dflat = g.new_zeros(numel + idx.shape[0])
+    for c in range(8):
+        dflat.index_add_(0, at[:, c], g[:, c])
+    return dflat[:numel].reshape(shape)
 
 
 class _SlotRows(torch.autograd.Function):
@@ -351,13 +374,14 @@ class MCSoupResult(NamedTuple):
     """Padded triangle-soup marching cubes output (fixed shapes).
 
     ``soup[:num_faces]`` are world-space triangles; the tail is zero padding
-    (point triangles, which the casters never hit).
+    (point triangles, which the casters never hit). The fields and defaults
+    are the JAX package's.
     """
 
     soup: Tensor  # (face_capacity, 3, 3) float32
     num_faces: Tensor  # () int32 (true count, may exceed capacity)
-    active_overflow: Tensor  # () bool: the active-cube budget ran out
-    num_active: Tensor  # () int32 active cubes counted
+    # () bool: the active-cube budget ran out (or False, as in the JAX type)
+    active_overflow: Union[Tensor, bool] = False
 
     @property
     def overflowed(self) -> Tensor:
@@ -367,13 +391,15 @@ class MCSoupResult(NamedTuple):
 def _mc_soup_impl(density: Tensor, thresh, lower: Tensor,
                   upper: Tensor, face_capacity: int,
                   active_capacity: int = 0, row_limit: Optional[int] = None,
-                  x_offset: int = 0, x_total: int = 0) -> MCSoupResult:
+                  x_offset: int = 0, x_total: int = 0
+                  ) -> Tuple[MCSoupResult, Tensor]:
     """Triangle-soup marching cubes, differentiable with respect to density.
 
     Each face slot decodes its three edges from the cube coordinates and the
     packed triangle table and interpolates the crossings from the cube's
     eight corner densities, so no vertex numbering is built. Gradients reach
-    the grid through the corner gather.
+    the grid through the corner gather. Returns the result and the active
+    cubes counted (() int32), which the overflow checks name.
 
     Shard-window mode (``parallel/pipeline.py``): ``density`` is an x-slab
     of a larger grid plus one halo row; ``row_limit`` masks the cube rows
@@ -399,7 +425,8 @@ def _mc_soup_impl(density: Tensor, thresh, lower: Tensor,
     # corner densities: one gather per active cube, one row per face slot;
     # every edge endpoint is one of the cube's 8 corners
     ci_a, cj_a, ck_a = _cube_ijk(fs.asrc, Y, Z)
-    cd = _CornerGather.apply(density, (ci_a * Y + cj_a) * Z + ck_a)
+    cd = _CornerGather.apply(density, (ci_a * Y + cj_a) * Z + ck_a,
+                             fs.valid_a)
     cd8 = _SlotRows.apply(cd, fs.apos, fs.base_a, fs.ntris_a)
     zero = density.new_zeros(())
     one = density.new_ones(())
@@ -426,8 +453,8 @@ def _mc_soup_impl(density: Tensor, thresh, lower: Tensor,
              for a, c in enumerate((ci, cj, ck))], dim=-1)
         corners.append(torch.where(fs.valid_f[:, None], vtx, zero))
     soup = torch.stack(corners, dim=1)  # (Fc, 3, 3)
-    return MCSoupResult(soup, fs.num_faces.to(torch.int32), fs.a_ovf,
-                        fs.n_active.to(torch.int32))
+    return (MCSoupResult(soup, fs.num_faces.to(torch.int32), fs.a_ovf),
+            fs.n_active.to(torch.int32))
 
 
 def _density_tensor(density, device: torch.device) -> Tensor:
@@ -521,15 +548,15 @@ def marching_cubes_soup(
     lo = as_tensor([0.0, 0.0, 0.0] if lower is None else lower,
                    torch.float32, dev)
     up = as_tensor([X, Y, Z] if upper is None else upper, torch.float32, dev)
-    res = _mc_soup_impl(d, _thresh_arg(thresh, dev), lo, up,
-                        int(face_capacity), int(active_capacity))
+    res, n_active = _mc_soup_impl(d, _thresh_arg(thresh, dev), lo, up,
+                                  int(face_capacity), int(active_capacity))
     debug.check(res.num_faces <= face_capacity,
                 "marching_cubes_soup: face_capacity {c} overflowed "
                 "(counted {f} faces)", c=int(face_capacity), f=res.num_faces)
     debug.check(~res.active_overflow,
                 "marching_cubes_soup: active_capacity {c} overflowed "
                 "(counted {a} active cubes)",
-                c=int(active_capacity or face_capacity), a=res.num_active)
+                c=int(active_capacity or face_capacity), a=n_active)
     return res
 
 

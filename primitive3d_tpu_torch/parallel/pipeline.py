@@ -101,12 +101,13 @@ def sharded_sdf_fitting_loss(
     Xs = slab.shape[0]
     g = torch.cat([slab, halo_rows(mesh, slab, 1)])  # (Xs + 1, Y, Z)
     # owned cube rows: global [s * Xs, min((s + 1) * Xs, X - 1))
-    sres = _mc_soup_impl(g, _thresh_arg(thresh, dev), lo_w, up_w, fcap,
-                         acap, row_limit=min(max(X - 1 - s * Xs, 0), Xs),
-                         x_offset=s * Xs, x_total=X)
+    sres, n_active = _mc_soup_impl(
+        g, _thresh_arg(thresh, dev), lo_w, up_w, fcap, acap,
+        row_limit=min(max(X - 1 - s * Xs, 0), Xs), x_offset=s * Xs,
+        x_total=X)
     if debug.enabled():
         counts = gather_rows(mesh, torch.stack(
-            [sres.num_faces, sres.num_active]).to(torch.int64)[None])
+            [sres.num_faces, n_active]).to(torch.int64)[None])
         for r, (nf, na) in enumerate(counts.tolist()):
             debug.check(nf <= fcap, "sharded_sdf_fitting_loss: shard {r} "
                         "counted {f} faces, past its face capacity fcap = "

@@ -3,10 +3,10 @@
 Counterpart of ``primitive3d_tpu/raycast.py``, with all four backends of
 the JAX package:
 
-  * ``pallas``: :class:`ClusterRayCaster` (the JAX package's
-    ``PallasRayCaster``) on the card's hand-written cluster kernels, with
-    the JAX package's size tiers: resident, stream, and past 32767 clusters
-    the scalar-broadcast tier;
+  * ``pallas``: :class:`ClusterRayCaster` (also named
+    :data:`PallasRayCaster`, the JAX package's name) on the card's
+    hand-written cluster kernels, with the JAX package's size tiers:
+    resident, stream, and past 32767 clusters the scalar-broadcast tier;
   * ``mxu``: :class:`MxuRayCaster`, every ray against every triangle as a
     matrix product (``mxu_cast.py``);
   * ``bruteforce``: :class:`BruteForceRayCaster`, Möller-Trumbore over
@@ -32,6 +32,7 @@ import torch
 from .bvh.clusters import (CLUSTER_SIZE, build_cluster_tree, build_clusters,
                            build_mxu_clusters)
 from .core import debug
+from .core.config import MXU_MAX_TRIS as _MXU_MAX_TRIS
 from .core.config import RayCastConfig
 from .core.device import DeviceLike, as_tensor, resolve_device
 from .geometry import triangle as tri_ops
@@ -214,9 +215,11 @@ class ClusterRayCaster(RayCaster):
     cluster size is 128 up to 500k triangles and 256 above.
     """
 
-    # the one default of the resident-tier cap: RayCastConfig and
-    # cast_clusters_diff read it when given no cap
-    MXU_MAX_TRIS = 32_000
+    # the resident-tier cap when given none; cast_clusters_diff reads it
+    MXU_MAX_TRIS = _MXU_MAX_TRIS
+    # the JAX package's back-compat constant: None in the constructor means
+    # STREAM_MAX_CLUSTERS clusters, whatever this says
+    MXU_STREAM_MAX_TRIS = 2_000_000
     AUTO_FAT_CLUSTER_TRIS = 500_000
 
     def __init__(self, vertices, faces, max_dist=DEFAULT_MAX_DIST,
@@ -253,6 +256,10 @@ class ClusterRayCaster(RayCaster):
                                     tree=self.tree)
         return _finish_hits(self._fin, self.cbvh.prim_order, depth, sidx, o,
                             d, self.max_dist)
+
+
+# the JAX package's name for the cluster caster
+PallasRayCaster = ClusterRayCaster
 
 
 class BruteForceRayCaster(RayCaster):

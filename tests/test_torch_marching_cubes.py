@@ -19,6 +19,7 @@ import primitive3d_tpu_torch as p3t
 from primitive3d_tpu.kernels.mc_masks import fused_masks as jax_fused_masks
 from primitive3d_tpu.ops import mc_tables as jax_tables
 from primitive3d_tpu_torch.kernels import mc_masks as port_masks
+from primitive3d_tpu_torch.ops.marching_cubes import _counts, _mc_soup_impl
 from primitive3d_tpu_torch.ops import mc_tables as port_tables
 from tests.mask_cases import special_grid
 
@@ -258,4 +259,9 @@ def test_count_dtypes_match_jax(grid):
     for w, t in pairs:
         assert np.asarray(w).dtype == np.int32 and t.dtype == torch.int32
         assert t.shape == () and int(t) == int(w)
-    assert soup_t.num_active.dtype == torch.int32
+    # the active cubes counted, which the soup's overflow checks name
+    _, n_active = _mc_soup_impl(torch.from_numpy(g), 0.0, torch.zeros(3),
+                                torch.tensor(g.shape, dtype=torch.float32),
+                                32768)
+    assert n_active.dtype == torch.int32 and n_active.shape == ()
+    assert int(n_active) == int(_counts(torch.from_numpy(g), 0.0)[2]) > 0

@@ -151,11 +151,11 @@ def test_soup_shard_window_of_the_whole_grid_is_bit_equal():
     g = torch.from_numpy(sphere())
     X = g.shape[0]
     lo, up = (t.to(torch.float32) for t in _box(torch))
-    one = _mc_soup_impl(g, 0.0, lo, up, 4096)
-    win = _mc_soup_impl(g, 0.0, lo, up, 4096, row_limit=X - 1, x_offset=0,
-                        x_total=X)
+    one, na_one = _mc_soup_impl(g, 0.0, lo, up, 4096)
+    win, na_win = _mc_soup_impl(g, 0.0, lo, up, 4096, row_limit=X - 1,
+                                x_offset=0, x_total=X)
     assert int(one.num_faces) > 0
-    for a, b in zip(one, win):
+    for a, b in zip(one + (na_one,), win + (na_win,)):
         assert torch.equal(a, b)
 
 
@@ -174,8 +174,8 @@ def test_soup_shard_window_matches_jax(x0):
                          4096, row_limit=jnp.int32(row_limit),
                          x_offset=jnp.int32(x0), x_total=X)
     lo, up = (t.to(torch.float32) for t in _box(torch))
-    got = _mc_soup_impl(torch.from_numpy(slab), 0.0, lo, up, 4096,
-                        row_limit=row_limit, x_offset=x0, x_total=X)
+    got, _ = _mc_soup_impl(torch.from_numpy(slab), 0.0, lo, up, 4096,
+                           row_limit=row_limit, x_offset=x0, x_total=X)
     assert int(got.num_faces) == int(want.num_faces) > 0
     np.testing.assert_allclose(got.soup.numpy(), np.asarray(want.soup),
                                rtol=1e-6, atol=1e-6)
@@ -205,6 +205,57 @@ def test_soup_backward_matches_jax(grid):
     got = p3t.marching_cubes_soup(dens, 0.0, face_capacity=4096,
                                   device="cpu", **kw)
     got.soup.backward(torch.from_numpy(ct))
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(dens.grad.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_soup_backward_spreads_its_padding_adds(monkeypatch):
+    """The corner adds of the soup's backward on the 16^3 sphere with a
+    face capacity far above its face count, so most active slots are
+    padding. Each corner column of the add index is injective (the padding
+    rows go to a tail past the grid, not to cube 0); the gradient equals the
+    old layout's, every padding row added at cube 0, built here (after
+    ``+ 0.0``, which folds signed zeros); and it matches ``jax.vjp`` of the
+    JAX soup at test_soup_backward_matches_jax's rtol 1e-5 / atol 1e-6."""
+    from primitive3d_tpu_torch.ops import marching_cubes as mc
+
+    g = sphere(n=16)
+    cap = 4096
+    seen = []
+    corner_adds = mc._corner_adds
+
+    def recording(idx, valid, ct, shape):
+        seen.append((idx, valid, ct, shape))
+        return corner_adds(idx, valid, ct, shape)
+
+    monkeypatch.setattr(mc, "_corner_adds", recording)
+    dens = torch.from_numpy(g).requires_grad_()
+    got = p3t.marching_cubes_soup(dens, 0.0, face_capacity=cap,
+                                  device="cpu", **BOX)
+    rng = np.random.default_rng(11)
+    ct = rng.standard_normal(got.soup.shape).astype(np.float32)
+    got.soup.backward(torch.from_numpy(ct))
+    assert len(seen) == 1
+    idx, valid, gc, shape = seen[0]
+    A = idx.shape[0]
+    n_pad = int((~valid).sum())
+    assert A == cap and n_pad > A // 2 and int(got.num_faces) < cap // 4
+    # the forward's index: every padding row at cube 0's corners
+    assert int(idx[-1, 0]) == 0
+    assert torch.equal(idx[~valid], idx[-1:].expand(n_pad, 8))
+    assert bool((gc[~valid] == 0).all())
+    at = mc._corner_index(idx, valid, shape.numel())
+    for c in range(8):
+        assert at[:, c].unique().numel() == A
+    assert bool((at[~valid] >= shape.numel()).all())
+    old = torch.zeros(shape.numel())
+    for c in range(8):
+        old.index_add_(0, idx[:, c], gc[:, c])
+    assert torch.equal(dens.grad + 0.0, old.reshape(shape) + 0.0)
+    _, vjp = jax.vjp(
+        lambda d: jax_soup(d, 0.0, face_capacity=cap, **BOX).soup,
+        jnp.asarray(g))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(dens.grad.numpy(), want, rtol=1e-5, atol=1e-6)
 
