@@ -76,6 +76,18 @@ events, and prints:
     ``index_add_``s on the flagship step's own cotangent, device time with
     the padding rows spread past the grid against the old layout built
     here, every padding row at cube 0, the two gradients equal);
+    ``padded_backwards``: the four backwards whose misses or padding rows
+    all added into one index, each on its path's own cotangent at full
+    size, with those rows sent to a tail past the output, against the old
+    layout built here (device and per-call ms of both, the bytes bound,
+    the gradients equal after ``+ 0.0``): ``resident_planes`` (the bunny
+    through ``cast_clusters_diff``'s resident tier, 512x512 rays),
+    ``scalar_planes`` (the large mesh's scalar tier, recorded on its path),
+    ``mesh_density`` (``marching_cubes_padded`` of the 256^3 sphere at the
+    Adam steps' budgets, a seeded cotangent on its vertices),
+    ``deindex_vertices`` (``render_depth``'s "mxu" de-index of that mesh,
+    the cotangent back through ``triangle_matrix``), and the small
+    sphere's "mxu" step as a whole in both layouts;
   * a ``kernels`` JSON line: each kernel's launches on the main paths,
     error against its plain version, its time per wrapper call (``ms``,
     CUDA events around one call, the host's part included), its own device
@@ -900,6 +912,90 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def old_planes_select(idx, keep, g, n):
+    """The resident tier's old backward (``_PlanesSelect`` before its
+    tail): the hit rays' cotangents added at ``max(prim, 0)`` with
+    ``index_add_``, every missed ray a zero row at plane 0."""
+    import torch
+    out = g.new_zeros((n,) + g.shape[1:])
+    return out.index_add_(0, idx.clamp(min=0).long(),
+                          torch.where(keep[:, None], g, 0.0))
+
+
+def old_index_backward(idx, keep, g, n):
+    """The other sites' old backward: autograd's index backward of
+    ``src[idx]`` (``index_put_`` with accumulate, which sorts the index and
+    sums each run of equal indices in one warp), every dropped row at its
+    forward index. The indexed mesh ran it once per column; here it runs
+    once over both."""
+    out = g.new_zeros((n,) + g.shape[idx.dim():])
+    return out.index_put_((idx.clamp(min=0),), g, accumulate=True)
+
+
+def padded_backward(name, call, old, mcmod):
+    """One site's backward on its path's recorded ``_tail_adds`` call
+    ``(idx, keep, g, n)`` against the old layout ``old``: checks that the
+    dropped rows (``keep`` false) have a zero cotangent and distinct tail
+    slots past the output, and that the two gradients are equal after
+    ``+ 0.0`` with both computed under ``torch.use_deterministic_algorithms``
+    (``index_add_`` then sorts and sums in index order, as ``index_put_``
+    does; its atomics add a row's several cotangents in no fixed order), and
+    the atomics' result within 1e-5 of the largest entry of it. Returns the
+    stage entry: per-call and device ms of both, and the bytes bound."""
+    import torch
+
+    idx, keep, g, n = call
+    drop = ~keep
+    nd = int(drop.sum())
+    check(nd > 0 and bool((g[drop] == 0).all()),
+          f"{name}: no dropped row, or a dropped row's cotangent is not 0")
+    at = mcmod._tail_index(idx, keep, n)[drop]
+    check(bool((at >= n).all()) and at.unique().numel() == at.numel(),
+          f"{name}: a tail slot repeats or lies inside the output")
+    one_index = idx.clamp(min=0)[drop].reshape(nd, -1).unique(
+        dim=0).shape[0] == 1
+
+    def new_fn():
+        return mcmod._tail_adds(idx, keep, g, n)
+
+    def old_fn():
+        return old(idx, keep, g, n)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        new_d, old_d, again = new_fn(), old_fn(), new_fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(torch.equal(new_d + 0.0, old_d + 0.0) and torch.equal(new_d, again),
+          f"{name}: the gradient differs from the old layout's")
+    scale = float(new_d.abs().max())
+    drift = float((new_fn() - new_d).abs().max())
+    check(scale > 0 and drift <= 1e-5 * scale,
+          f"{name}: the atomics' gradient is {drift} from the sorted one")
+    row = g.shape[idx.dim():].numel()
+    out = dict(rows=idx.shape[0], dropped=nd, output_rows=n,
+               old_dropped_at_one_index=one_index,
+               bit_equal=torch.equal(new_d, old_d),
+               atomics_max_abs_diff=drift, max_abs=scale,
+               bound_ms=(nbytes(idx, keep, g) + n * row * 4)
+               / HBM_BYTES_PER_S * 1e3)
+    del new_d, old_d, again
+    for key, fn in (("new", new_fn), ("old", old_fn)):
+        out[f"{key}_ms"] = event_ms(fn, iters=10)
+        out[f"{key}_device_ms"], out[f"{key}_device_src"] = device_ms(fn,
+                                                                      None)
+    log(f"padded backward {name}: {idx.shape[0]} rows, {nd} dropped (the "
+        f"old layout's at one index: {one_index}) into {n} output rows; "
+        f"equal to the old layout after + 0.0 (bit-equal "
+        f"{out['bit_equal']}), atomics within {drift:.3g} of the sorted "
+        f"sum; device {out['new_device_ms']:.4f} ms "
+        f"({out['new_device_src']}) against the old layout's "
+        f"{out['old_device_ms']:.4f} ms ({out['old_device_src']}), per "
+        f"call {out['new_ms']:.4f} against {out['old_ms']:.4f} ms; bound "
+        f"{out['bound_ms']:.4f} ms (bytes)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1044,8 +1140,30 @@ def main() -> int:
         return (v_l, f_l, rc_l, hits_l, unordered,
                 (depth_g.detach(), prim_g, tris_g.grad))
 
-    (v_l, f_l, rc_l, hits_l, (t_u, i_u), (depth_g, prim_g, grad_g)), \
-        large = counted("large-mesh", LARGE_KERNELS, serve_large)
+    tail_adds = mcmod._tail_adds
+
+    def recorded(module, drive):
+        """``drive()`` and the ``_tail_adds`` calls it made (patched in
+        ``module``)."""
+        calls = []
+
+        def rec(*args):
+            calls.append(args)
+            return tail_adds(*args)
+
+        setattr(module, "_tail_adds", rec)
+        try:
+            out = drive()
+        finally:
+            setattr(module, "_tail_adds", tail_adds)
+        return out, calls
+
+    # the scalar tier's plane gather's backward (its _tail_adds call) is
+    # kept for the padded_backwards stage
+    ((v_l, f_l, rc_l, hits_l, (t_u, i_u), (depth_g, prim_g, grad_g)),
+     large), tail_args = recorded(mcmod, lambda: counted(
+         "large-mesh", LARGE_KERNELS, serve_large))
+    check(len(tail_args) == 1, "the large mesh's backward ran no tail adds")
 
     # -- 3d. the sharded path, once, counted, then its checks and times ----
     sharded, sharded_times = sharded_path(
@@ -1890,6 +2008,90 @@ def main() -> int:
         f"against {corner['old_ms']:.4f} ms; bound "
         f"{corner['bound_ms']:.4f} ms (bytes)")
     del idx_c, valid_c, g_c, new_g, old_g, at, corner_args
+
+    # -- 6d. the backwards whose misses or padding rows all added into one
+    # index, each on its path's own cotangent at full size: the dropped rows
+    # sent to a tail past the output, against the old layout built here
+    from primitive3d_tpu_torch.mxu_cast import triangle_matrix
+
+    padded = {}
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    # F1: the bunny's soup in the resident tier, under its 512x512 rays
+    tris_b = v_b[f_b.long()].clone().requires_grad_()
+
+    def bunny_diff():
+        depth, prim = rk.cast_clusters_diff(tris_b, o_b, d_b)
+        check(tris_b.shape[0] <= ClusterRayCaster.MXU_MAX_TRIS,
+              "the bunny's cast is not in the resident tier")
+        torch.where(prim >= 0, depth, 0.0).sum().backward()
+
+    _, (f1,) = recorded(rk, bunny_diff)
+    padded["resident_planes"] = padded_backward(
+        "resident_planes (cast_clusters_diff, bunny, 512x512)", f1,
+        old_planes_select, mcmod)
+    # F2: the large mesh's scalar-tier backward, recorded on its path
+    padded["scalar_planes"] = padded_backward(
+        f"scalar_planes (cast_clusters_diff, {LARGE_TRIS} triangles)",
+        tail_args[0], old_index_backward, mcmod)
+    # F3: the 256^3 sphere's indexed mesh at the fitting budgets, a seeded
+    # cotangent on its vertices
+    caps = dict(vert_capacity=fit_kw["vert_capacity"],
+                face_capacity=fit_kw["face_capacity"],
+                active_capacity=fit_kw["active_capacity"], **BOX)
+    dens_p = sphere_dev.clone().requires_grad_()
+    res_p = marching_cubes_padded(dens_p, 0.0, **caps)
+    ct_v = torch.randn(res_p.vertices.shape, generator=gen, device=dev)
+    _, (f3,) = recorded(mcmod, lambda: res_p.vertices.backward(ct_v))
+    check(torch.allclose(mcmod._tail_adds(*f3).reshape(dens_p.shape),
+                         dens_p.grad, rtol=0,
+                         atol=1e-5 * float(dens_p.grad.abs().max())),
+          "mesh_density: not the path's gradient")
+    padded["mesh_density"] = padded_backward(
+        "mesh_density (marching_cubes_padded, 256^3)", f3,
+        old_index_backward, mcmod)
+    # F4: render_depth's "mxu" de-index of that mesh; the cotangent comes
+    # back through triangle_matrix, which zeroes the padded faces' rows
+    verts_p = res_p.vertices.detach().requires_grad_()
+    Fc = res_p.faces.shape[0]
+    ct_w = torch.randn((Fc, 10, 5), generator=gen, device=dev)
+
+    def deindex():
+        tris = mcmod._TailGather.apply(
+            verts_p, res_p.faces.long(),
+            torch.arange(Fc, device=dev) < res_p.num_faces)
+        triangle_matrix(tris).backward(ct_w)
+
+    _, (f4,) = recorded(mcmod, deindex)
+    padded["deindex_vertices"] = padded_backward(
+        f"deindex_vertices (render_depth mxu, {Fc} faces)", f4,
+        old_index_backward, mcmod)
+    del tris_b, f1, dens_p, res_p, ct_v, f3, verts_p, ct_w, f4, tail_args
+
+    # the small sphere's "mxu" training step as a whole, both layouts; its
+    # device time sums every kernel of a step
+    g_small = torch.from_numpy(g).to(dev)
+
+    def small_mxu_step():
+        dens = g_small.clone().requires_grad_()
+        sdf_fitting_loss(dens, cam_s.origins, cam_s.dirs, target_s,
+                         backend="mxu", **small_kw).backward()
+
+    step = {}
+    for key in ("new", "old", "new2", "old2"):
+        if key.startswith("old"):
+            mcmod._tail_adds = old_index_backward
+        try:
+            step[f"{key}_ms"] = event_ms(small_mxu_step, iters=5)
+            step[f"{key}_device_ms"], _ = device_ms(small_mxu_step, None,
+                                                    calls=5)
+        finally:
+            mcmod._tail_adds = tail_adds
+    padded["small_mxu_step"] = step
+    stage["padded_backwards"] = padded
+    log(f"small sphere mxu step, new / old / new / old layout: "
+        + ", ".join(f"{step[k + '_ms']:.3f} ms ({step[k + '_device_ms']:.3f}"
+                    f" device)" for k in ("new", "old", "new2", "old2")))
 
     # -- 7. the marching-tetrahedra path, PLY I/O and the native runtime ----
     stage["sharded"] = sharded_times

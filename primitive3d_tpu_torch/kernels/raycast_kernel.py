@@ -55,6 +55,7 @@ import torch
 from ..bvh.clusters import (CLUSTER_SIZE, SUB_SIZE, TREE_WIDTH,  # noqa: F401
                             ClusterBVH, build_cluster_tree, tree_sizes)
 from ..geometry.triangle import dot3
+from ..ops.marching_cubes import _tail_adds, _TailGather
 from . import _build
 
 Tensor = torch.Tensor
@@ -1071,8 +1072,14 @@ def _plane_scatter_passes(g, widx, n, entries, C, S, out, scratch,
 
 class _PlanesSelect(torch.autograd.Function):
     """The winners' plane rows ``planes[max(prim, 0)]``, taken from the
-    cast kernel's fin rows; the backward scatter-adds the cotangents of the
-    hit rays (prim >= 0) into ``planes`` (resident tier)."""
+    cast kernel's fin rows (resident tier; a miss's row is zero). The
+    backward adds the hit rays' cotangents into ``planes`` at ``prim`` and
+    each missed ray r's, which the cast's hit mask makes zero, into its own
+    slot ``T + r`` of a tail past the T planes that is cut off
+    (``_tail_adds``), where every miss used to add a zero row into plane 0:
+    the column is injective over the misses, each plane receives the adds
+    it received before, in the same order, and the gradient keeps its bits
+    but for a -0.0 that the old +0.0 adds turned into +0.0."""
 
     @staticmethod
     def forward(ctx, planes, prim, fin4):
@@ -1083,10 +1090,7 @@ class _PlanesSelect(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (prim,) = ctx.saved_tensors
-        dplanes = torch.zeros((ctx.T, 4), dtype=g.dtype, device=g.device)
-        dplanes.index_add_(0, prim.clamp(min=0).to(torch.int64),
-                           torch.where((prim >= 0)[:, None], g, 0.0))
-        return dplanes, None, None
+        return _tail_adds(prim, prim >= 0, g, ctx.T), None, None
 
 
 class _PlanesSelectWS(torch.autograd.Function):
@@ -1129,8 +1133,9 @@ def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
     (default 32767 clusters of 128) triangles, where meshes of more than
     ``ClusterRayCaster.MXU_MAX_TRIS`` take the stream tier, whose backward
     runs the plane scatter kernel over the forward's work list; Morton-order
-    clusters of 128 for the scalar-broadcast tier above, whose backward is
-    autograd's own gather backward.
+    clusters of 128 for the scalar-broadcast tier above. The resident and
+    scalar tiers' backwards add each missed ray's (zero) plane cotangent
+    into its own slot past the planes (``_PlanesSelect``, ``_TailGather``).
     """
     from ..bvh.clusters import build_clusters, build_mxu_clusters
     from ..raycast import ClusterRayCaster
@@ -1158,7 +1163,11 @@ def cast_clusters_diff(tris: Tensor, origins: Tensor, dirs: Tensor, bvh=None,
                                     max_dist)
         prim = bvh.prim_order[sidx.clamp(min=0).to(torch.int64)]
         hit = (sidx >= 0) & (prim >= 0)
-        pr = planes[prim.clamp(min=0).to(torch.int64)]
+        # every miss gathers one plane (sorted slot 0's) with a zero
+        # cotangent (the depth's where); the backward adds it past the
+        # planes, not into that plane
+        pr = _TailGather.apply(planes, prim.clamp(min=0).to(torch.int64),
+                               hit)
         prim = torch.where(hit, prim, -1)
     else:
         with torch.no_grad():

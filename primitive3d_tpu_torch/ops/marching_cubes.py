@@ -141,6 +141,57 @@ def _thresh_arg(thresh, device: torch.device):
     return thresh.reshape(()).to(device=device, dtype=torch.float32)
 
 
+def _tail_index(idx: Tensor, keep: Tensor, n: int) -> Tensor:
+    """The add index of :class:`_TailGather`'s backward, shaped as ``idx``
+    (rows, ...): ``idx`` on the rows where ``keep`` (rows,) holds, and ``n``
+    plus its flat position on every entry of the other rows, past the
+    source's ``n`` rows."""
+    tail = n + torch.arange(idx.numel(), device=idx.device).view(idx.shape)
+    return torch.where(keep.view((-1,) + (1,) * (idx.dim() - 1)), idx, tail)
+
+
+def _tail_adds(idx: Tensor, keep: Tensor, g: Tensor, n: int) -> Tensor:
+    """The backward of ``src[idx]`` for a source of ``n`` rows: one
+    ``index_add_`` of the cotangent ``g``, in ``idx``'s row-major order,
+    into zero rows at :func:`_tail_index`; the tail that the dropped rows
+    add into is cut off."""
+    at = _tail_index(idx, keep, n).reshape(-1)
+    row = g.shape[idx.dim():]
+    out = g.new_zeros((n + at.numel(),) + row)
+    out.index_add_(0, at, g.reshape((at.numel(),) + row))
+    return out[:n]
+
+
+class _TailGather(torch.autograd.Function):
+    """``src[idx]``, for an index whose rows where ``keep`` is false are
+    misses or padding: they gather a real row (the forward's values are
+    the plain gather's), and their cotangent is zero, since the caller
+    masks their output. The backward (:func:`_tail_adds`) sends each entry
+    of such a row to its own slot of a tail past ``src`` and cuts the tail
+    off. So the add index is injective over the dropped rows, and each
+    real row receives exactly the adds it received with the dropped rows at
+    their forward index, in the same order: the gradient keeps its bits but
+    for a -0.0 that the dropped rows' +0.0 adds used to turn into +0.0.
+    Autograd's index backward sorts the index and sums each run of equal
+    indices in one warp, so thousands of dropped rows at one index
+    serialise it on the card. On the card ``index_add_`` adds a row's
+    several cotangents with atomics, in no fixed order; under
+    ``torch.use_deterministic_algorithms(True)`` it sorts and sums them in
+    index order, and the tail keeps that sort's runs short.
+    """
+
+    @staticmethod
+    def forward(ctx, src, idx, keep):
+        ctx.save_for_backward(idx, keep)
+        ctx.n = src.shape[0]
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, keep = ctx.saved_tensors
+        return _tail_adds(idx, keep, g, ctx.n), None, None
+
+
 def _selected_positions(density: Tensor, thresh, src: Tensor,
                         valid: Tensor, scale: Tensor, lower: Tensor
                         ) -> Tensor:
@@ -151,12 +202,14 @@ def _selected_positions(density: Tensor, thresh, src: Tensor,
     ``dt = clip((thresh - d0) / (d1 - d0), 0, 1)`` (a zero denominator
     divides by 1 instead). ``clamp`` passes the whole gradient at a bound,
     as the JAX package's hand-written VJP does, to the density and to a
-    tensor ``thresh`` alike.
+    tensor ``thresh`` alike. The padding slots (``valid`` false; ``src`` 0,
+    edge 0) gather edge 0's samples, and their zeroed positions give them a
+    zero cotangent; the gather's backward adds them past the grid
+    (:class:`_TailGather`), not at edge 0's two points.
     """
     is_x, is_y, is_z, i, j, k, p0, p1 = _decode_edge(src, density.shape)
-    dflat = density.reshape(-1)
-    d0 = dflat[p0]
-    d1 = dflat[p1]
+    d0, d1 = _TailGather.apply(density.reshape(-1),
+                               torch.stack([p0, p1], 1), valid).unbind(1)
     den = d1 - d0
     safe = torch.where(den == 0, torch.ones_like(den), den)
     dt = torch.clamp((thresh - d0) / safe, 0.0, 1.0)

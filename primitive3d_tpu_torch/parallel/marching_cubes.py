@@ -32,7 +32,8 @@ from ..core.device import as_tensor
 from ..kernels.mc_masks import fused_masks
 from ..ops.marching_cubes import (MAX_TRIS_PER_CUBE, _compact_src,
                                   _cube_ijk, _excl_cumsum, _face_slots,
-                                  _mask_thresh, _tables, _thresh_arg)
+                                  _mask_thresh, _tables, _TailGather,
+                                  _thresh_arg)
 from .mesh import Mesh, gather_rows, gather_shards, halo_rows, sharded_along
 
 Tensor = torch.Tensor
@@ -176,9 +177,14 @@ def mc_shard_body(slab: Tensor, *, thresh, mesh: Mesh, S: int, Xv: int,
     k = torch.where(is_y, r % Z, torch.where(is_z, rz % (Z - 1), rx % Z))
     base = (i * Y + j) * Z + k
     step = torch.where(is_y, Z, torch.where(is_z, 1, Y * Z))
-    gf = g.reshape(-1)
-    d0 = gf[base]
-    d1 = gf[base + step]  # x-edges of the last owned row read the halo
+    vcount = mask_flat.sum()  # this shard's rows of row_tot_all
+    valid_v = torch.arange(vert_cap_per_shard, device=dev) < vcount
+    # x-edges of the last owned row read the halo; the padding slots (src
+    # 0) read points 0 and Z, with a zero cotangent (their zeroed
+    # positions), which the backward adds past the slab (_TailGather)
+    d0, d1 = _TailGather.apply(g.reshape(-1),
+                               torch.stack([base, base + step], 1),
+                               valid_v).unbind(1)
     den = d1 - d0
     th = _thresh_arg(thresh, dev)
     zero, one = torch.zeros_like(den), torch.ones_like(den)
@@ -189,8 +195,6 @@ def mc_shard_body(slab: Tensor, *, thresh, mesh: Mesh, S: int, Xv: int,
                        + torch.where(is_x, dt, zero),
                        j.to(torch.float32) + torch.where(is_y, dt, zero),
                        k.to(torch.float32) + torch.where(is_z, dt, zero)], -1)
-    vcount = mask_flat.sum()  # this shard's rows of row_tot_all
-    valid_v = torch.arange(vert_cap_per_shard, device=dev) < vcount
     verts = torch.where(valid_v[:, None], pos, torch.zeros_like(pos))
 
     # --- faces: owned cube rows whose +x row lies inside the grid ---------

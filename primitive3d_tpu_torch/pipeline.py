@@ -28,8 +28,8 @@ import torch
 from .core.device import DeviceLike, as_tensor, resolve_device
 from .kernels.raycast_kernel import cast_clusters_diff
 from .mxu_cast import cast_mxu, triangle_matrix
-from .ops.marching_cubes import (MCResult, marching_cubes_padded,
-                                 marching_cubes_soup)
+from .ops.marching_cubes import (MCResult, _TailGather,
+                                 marching_cubes_padded, marching_cubes_soup)
 
 Tensor = torch.Tensor
 
@@ -86,8 +86,14 @@ def render_depth(
         density, thresh, vert_capacity=vert_capacity,
         face_capacity=face_capacity, lower=lower, upper=upper,
         active_capacity=active_capacity, device=dev)
-    # padded faces [0, 0, 0] are point triangles: zero matrices, never hit
-    tris = res.vertices[res.faces.to(torch.int64)]  # (face_capacity, 3, 3)
+    # padded faces [0, 0, 0] are point triangles: zero matrices, never hit,
+    # so their cotangent is zero; the de-index's backward adds their rows
+    # past the vertices (_TailGather), not at vertex 0
+    fc = res.faces.shape[0]
+    tris = _TailGather.apply(
+        res.vertices, res.faces.to(torch.int64),
+        torch.arange(fc, device=res.faces.device) < res.num_faces
+    )  # (face_capacity, 3, 3)
     depth, idx = cast_mxu(triangle_matrix(tris), o, d, max_dist, chunk)
     return RenderOut(depth, idx >= 0, res)
 

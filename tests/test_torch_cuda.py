@@ -331,6 +331,42 @@ def test_training_step_card_equals_cpu(cuda, case, monkeypatch):
                                atol=1e-6 * float(gh.abs().max()))
 
 
+@pytest.mark.parametrize("site", ["resident", "padded"])
+def test_padded_backward_card_equals_cpu(cuda, site):
+    """The backwards that send their misses (``cast_clusters_diff``'s
+    resident tier, the cast kernel's winners: three in four rays miss the
+    32^3 sphere's soup) or padding slots (``marching_cubes_padded``'s
+    density gathers at 2.5 times the sphere's vertices) to a tail past
+    the output: the gradient on the card against the CPU, rtol 1e-5 / atol
+    1e-6 x its largest entry (the card's atomics add in another order)."""
+    cam = camera_rays(64, 64, (0.1, 0.2, 2.5), (0.0, 0.0, 0.0))
+    box = dict(lower=(-1, -1, -1), upper=(1, 1, 1))
+    ct = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4096, 3)).astype(np.float32))
+    grads = []
+    for device in ("cuda", "cpu"):
+        if site == "resident":
+            x = p3t.marching_cubes_soup(_sphere(), 0.0, face_capacity=8192,
+                                        device=device, **box).soup
+            x.requires_grad_()
+            depth, prim = rk.cast_clusters_diff(
+                x, torch.from_numpy(cam.origins).to(device),
+                torch.from_numpy(cam.dirs).to(device))
+            assert 0.5 < float((prim < 0).float().mean()) < 0.9
+            depth.backward(ct[:, 0].to(device))
+        else:
+            x = torch.from_numpy(_sphere()).to(device).requires_grad_()
+            v = p3t.marching_cubes_padded(x, 0.0, vert_capacity=4096,
+                                          face_capacity=8192, device=device,
+                                          **box).vertices
+            v.backward(ct.to(device))
+        grads.append(x.grad.cpu())
+    gc, gh = grads
+    assert float(gh.abs().max()) > 0
+    torch.testing.assert_close(gc, gh, rtol=1e-5,
+                               atol=1e-6 * float(gh.abs().max()))
+
+
 @pytest.mark.parametrize("S", [128, 256])
 @pytest.mark.parametrize("ordered", [True, False])
 def test_scalar_kernels_match_plain(cuda, ordered, S):

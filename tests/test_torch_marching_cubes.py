@@ -265,3 +265,135 @@ def test_count_dtypes_match_jax(grid):
                                 32768)
     assert n_active.dtype == torch.int32 and n_active.shape == ()
     assert int(n_active) == int(_counts(torch.from_numpy(g), 0.0)[2]) > 0
+
+
+# --- padded backwards: the dropped rows add past the output -----------------
+
+def run_both_layouts(monkeypatch, modules, run):
+    """``run()`` (a forward and backward returning its leaves' gradients)
+    twice: first as it is, recording each call of ``_tail_adds`` in
+    ``modules``; then with the old layout, every dropped row added at its
+    forward index (all of them at one row), as the backwards did before
+    their rows went to a tail. Returns (new, old, calls)."""
+    from primitive3d_tpu_torch.ops import marching_cubes as mc
+
+    tail_adds, calls = mc._tail_adds, []
+
+    def recording(idx, keep, g, n):
+        calls.append((idx, keep, g, n))
+        return tail_adds(idx, keep, g, n)
+
+    def old_layout(idx, keep, g, n):
+        return tail_adds(idx.clamp(min=0), torch.ones_like(keep), g, n)
+
+    for m in modules:
+        monkeypatch.setattr(m, "_tail_adds", recording)
+    new = run()
+    for m in modules:
+        monkeypatch.setattr(m, "_tail_adds", old_layout)
+    old = run()
+    return new, old, calls
+
+
+def check_tail_layout(new, old, calls, min_dropped):
+    """Each recorded backward had at least ``min_dropped`` dropped rows,
+    all at one index in the forward and each with a zero cotangent; its add
+    index keeps the kept rows' indices and sends the dropped rows' entries
+    to distinct slots past the source (so each column is injective over
+    them); and every gradient equals the old layout's after ``+ 0.0``,
+    which folds signed zeros."""
+    from primitive3d_tpu_torch.ops import marching_cubes as mc
+
+    assert calls
+    for idx, keep, g, n in calls:
+        drop = ~keep
+        nd = int(drop.sum())
+        assert nd >= min_dropped
+        fwd = idx.clamp(min=0)[drop].reshape(nd, -1)
+        assert fwd.unique(dim=0).shape[0] == 1
+        assert bool((g[drop] == 0).all())
+        at = mc._tail_index(idx, keep, n)
+        assert torch.equal(at[keep], idx[keep])
+        assert bool((at[drop] >= n).all())
+        assert at[drop].unique().numel() == at[drop].numel()
+    for a, b in zip(new, old):
+        assert float(a.abs().max()) > 0
+        assert torch.equal(a + 0.0, b + 0.0)
+
+
+def _vertex_loss(v, xp=torch):
+    """A loss of the vertex set alone, whatever its order (``xp`` is torch
+    or jax.numpy): a vertex row of zeros (padding) adds 0."""
+    a = xp.asarray([0.3, -0.7, 0.5])
+    b = xp.asarray([0.65, 0.39, -0.91])
+    return ((v @ a) ** 2 + xp.sin(v @ b)).sum()
+
+
+@pytest.mark.parametrize("entry", ["padded", "eager", "sharded"])
+def test_indexed_mesh_backward_adds_padding_past_the_grid(entry,
+                                                          monkeypatch):
+    """The indexed mesh's density gathers (``_selected_positions``; the
+    sharded body's own) on the 16^3 sphere with room to spare: the padding
+    slots (src 0, edge 0) add into a tail past the grid
+    (:func:`check_tail_layout`), and the gradient matches ``jax.vjp`` of
+    the JAX package's ``marching_cubes_padded`` at rtol 1e-5 / atol 1e-6.
+    ``eager`` is ``marching_cubes`` (capacities rounded up to powers of
+    two, then trimmed; against the JAX padded call, whose vertices past the
+    count get a zero cotangent); ``sharded`` is
+    ``parallel.marching_cubes.mc_shard_body`` at world size 1 on an
+    in-process gloo group, whose vertices come in another order, so the
+    loss is a function of the vertex set."""
+    import jax
+
+    from primitive3d_tpu_torch.ops import marching_cubes as mc
+    from primitive3d_tpu_torch.ops.marching_cubes import _round_capacity
+
+    g = sphere(16)
+    caps = dict(vert_capacity=2048, face_capacity=4096)
+    ct = np.random.default_rng(13).standard_normal((2048, 3)).astype(
+        np.float32)
+    nv = int(p3t.marching_cubes_counts(g, 0.0, device="cpu")[0])
+    if entry == "eager":
+        ct[nv:] = 0.0  # the vertices past nv are the JAX call's padding
+    v_cap = _round_capacity(nv) if entry == "eager" else 2048
+
+    def run():
+        dens = torch.from_numpy(g).requires_grad_()
+        if entry == "padded":
+            v = p3t.marching_cubes_padded(dens, 0.0, device="cpu",
+                                          **caps).vertices
+        elif entry == "eager":
+            v = torch.cat([p3t.marching_cubes(dens, 0.0, device="cpu")[0],
+                           torch.zeros((2048 - nv, 3))])
+        else:
+            import torch.distributed as dist
+
+            from primitive3d_tpu_torch.parallel.marching_cubes import \
+                mc_shard_body
+            from primitive3d_tpu_torch.parallel.mesh import Mesh
+            pg = dist.ProcessGroupGloo(dist.HashStore(), 0, 1)
+            v = mc_shard_body(
+                dens, thresh=0.0, S=1, Xv=g.shape[0],
+                mesh=Mesh(pg, 0, 1, torch.device("cpu"), "x"),
+                vert_cap_per_shard=2048, face_cap_per_shard=4096)[0]
+            _vertex_loss(v).backward()
+            return (dens.grad,)
+        assert v.shape == ct.shape
+        v.backward(torch.from_numpy(ct))
+        return (dens.grad,)
+
+    new, old, calls = run_both_layouts(monkeypatch, [mc], run)
+    check_tail_layout(new, old, calls, min_dropped=(v_cap - nv) // 2)
+    assert len(calls) == 1 and calls[0][0].shape == (v_cap, 2)
+
+    def jax_vertices(d):
+        return p3d.marching_cubes_padded(d, 0.0, **caps).vertices
+
+    if entry == "sharded":
+        want = jax.jit(jax.grad(lambda d: _vertex_loss(jax_vertices(d),
+                                                        jnp)))(jnp.asarray(g))
+    else:
+        want = jax.jit(lambda d, c: jax.vjp(jax_vertices, d)[1](c)[0])(
+            jnp.asarray(g), jnp.asarray(ct))
+    np.testing.assert_allclose(new[0].numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)

@@ -31,7 +31,8 @@ from primitive3d_tpu_torch.ops.marching_cubes import _mc_soup_impl
 from primitive3d_tpu_torch.raycast import ClusterRayCaster
 from primitive3d_tpu_torch.render.camera import camera_rays
 
-from .test_torch_marching_cubes import BUNNY, sphere
+from .test_torch_marching_cubes import (BUNNY, check_tail_layout,
+                                        run_both_layouts, sphere)
 
 BOX = dict(lower=(-1.0, -1.0, -1.0), upper=(1.0, 1.0, 1.0))
 
@@ -379,6 +380,75 @@ def test_cast_clusters_diff_matches_jax(tier, monkeypatch):
             bvh.boxes, rk._ray_intervals(op, dp, op.shape[0] // rk.MBLOCK),
             10.0)
         assert torch.equal(n, n2) and torch.equal(entries, e2)
+
+
+@pytest.mark.parametrize("site", ["resident", "scalar", "mxu"])
+def test_padded_backward_adds_misses_past_the_output(site, monkeypatch):
+    """The backwards whose misses or padding rows all added into one index:
+    ``cast_clusters_diff``'s resident tier (``_PlanesSelect``, every missed
+    ray at plane 0) and scalar tier (its plane gather, every miss at one
+    plane) on test_cast_clusters_diff_matches_jax's soup and rays (three
+    in four miss); and ``render_depth(backend="mxu")``: its de-index of
+    the padded faces (each row at vertex 0) and its indexed mesh's density
+    gathers (each padding slot at edge 0), at 1.6 times the 16^3 sphere's
+    faces. Each backward's dropped rows add past its output, with zero
+    cotangents, and the gradient equals the old layout's
+    (``check_tail_layout``). It matches ``jax.vjp`` of the JAX package's
+    function at this file's tolerances for it: the casts' rtol 1e-5 /
+    atol 2e-5 x the largest entry (grazing hits; jitted, XLA's fusions move
+    the JAX gradient by up to 3.9e-5 x it, so the casts run op by op), the
+    render's rtol 1e-4 / atol 1e-6 x the largest entry (test_sdf_fitting_
+    loss_matches_jax's; jitted)."""
+    from primitive3d_tpu_torch.ops import marching_cubes as mc
+
+    if site == "mxu":
+        x0 = sphere_density()
+        o, d = front_rays()
+        modules, rtol, atol = [mc], 1e-4, 1e-6
+        kw = dict(vert_capacity=512, face_capacity=1024, max_dist=100.0,
+                  chunk=1024)
+
+        def torch_depth(x):
+            return p3t.render_depth(x, o, d, backend="mxu", device="cpu",
+                                    **kw).depth
+
+        def jax_depth(x):
+            return jax_render(x, o, d, backend="mxu", **kw).depth
+    else:
+        x0, o, d = small_soup()
+        kw = (dict(mxu_max_tris=32_000) if site == "resident"
+              else dict(mxu_stream_max_tris=x0.shape[0] - 1))
+        modules = [rk] if site == "resident" else [mc]
+        rtol, atol = 1e-5, 2e-5
+
+        def torch_depth(x):
+            depth, prim = rk.cast_clusters_diff(
+                x, torch.from_numpy(o), torch.from_numpy(d), **kw)
+            assert 0.1 < float((prim >= 0).float().mean()) < 0.5
+            return depth
+
+        def jax_depth(x):
+            return jax_rk.cast_clusters_diff(
+                x, jnp.asarray(o), jnp.asarray(d), interpret=True, **kw)[0]
+    ct = np.random.default_rng(17).standard_normal(o.shape[0]).astype(
+        np.float32)
+
+    def run():
+        x = torch.from_numpy(x0).requires_grad_()
+        torch_depth(x).backward(torch.from_numpy(ct))
+        return (x.grad,)
+
+    new, old, calls = run_both_layouts(monkeypatch, modules, run)
+    check_tail_layout(new, old, calls, min_dropped=o.shape[0] // 2)
+    assert len(calls) == (2 if site == "mxu" else 1)
+    def vjp(x, c):
+        return jax.vjp(jax_depth, x)[1](c)[0]
+
+    if site == "mxu":  # op by op it takes ~8 s
+        vjp = jax.jit(vjp)
+    want = np.asarray(vjp(jnp.asarray(x0), jnp.asarray(ct)))
+    np.testing.assert_allclose(new[0].numpy(), want, rtol=rtol,
+                               atol=atol * np.abs(want).max())
 
 
 # --- the pipeline -----------------------------------------------------------
